@@ -32,10 +32,9 @@ def main() -> None:
     a = d.n_assets
     w = np.full(a, 1.0 / a)
 
-    n_paths = 98_304 if backend == "tpu" else 16_384  # 12 x 8192 blocks (~100k)
+    n_paths = 98_304 if backend == "gpu" else 16_384  # 12 x 8192 blocks (~100k)
     steps = 252
-    cfg = GBMConfig(n_paths=n_paths, n_steps=steps, path_block=8_192,
-                    use_pallas=backend == "tpu")
+    cfg = GBMConfig(n_paths=n_paths, n_steps=steps, path_block=8_192)
     report, _ = run_resumable_mc(params, w, cfg, SketchConfig())
     ann_scale = 1.0  # steps are weekly periods here; report per-horizon stats
     port_vol_proxy = float(np.sqrt(w @ report.cov @ w))
@@ -46,7 +45,7 @@ def main() -> None:
             var95=report.var, cvar95=report.cvar)
 
     # kernel throughput via the difference protocol
-    if backend == "tpu":
+    if backend == "gpu":
         from mcport.ops.pallas_gbm import pallas_terminal_log_returns
 
         m32 = params.mean_step.astype(np.float32)

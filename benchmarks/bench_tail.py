@@ -1,7 +1,7 @@
 """BASELINE.json config 4: tail risk at scale — 16M paths, VaR_95/99 + CVaR via
 the on-device quantile sketch and the chunked resumable engine.
 
-Run: python benchmarks/bench_tail.py  (TPU; CPU falls back to 1M paths)
+Run: python benchmarks/bench_tail.py  (16M paths on a GPU; 1M on the CPU)
 """
 
 import sys
@@ -31,9 +31,9 @@ def main() -> None:
     a = d.n_assets
     w = np.full(a, 1.0 / a)
 
-    n_paths = 16_777_216 if backend == "tpu" else 1_048_576
+    n_paths = 16_777_216 if backend == "gpu" else 1_048_576
     cfg = GBMConfig(n_paths=n_paths, n_steps=52, path_block=262_144,
-                    use_pallas=backend == "tpu", antithetic=True)
+                    antithetic=True)
     # adaptive log1p sketch derived from the GBM params (r2: replaces the fixed
     # linear grid that silently clamped long-horizon/crypto return scales)
     from mcport.ops.quantile import auto_sketch

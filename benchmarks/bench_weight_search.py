@@ -61,7 +61,7 @@ def main() -> None:
     # ---- config 3: full universe, 1M candidates, target-risk --------------
     daily = sorted(p for p in FIXTURES.glob("*.csv") if "7 Years Weekly" not in p.name)
     d15 = load_universe(paths=daily, config=DataConfig(period="D"))
-    n3 = 1_000_000 if backend == "tpu" else 100_000
+    n3 = 1_000_000 if backend == "gpu" else 100_000
     t0 = time.perf_counter()
     r3 = run_method(jax.random.key(0), "Target Risk", d15.port_rets, d15.mean_ann,
                     d15.cov_ann, risk_free=0.03, n_portfolios=n3, target_risk=0.30)

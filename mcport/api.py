@@ -4,8 +4,8 @@
 tab flow (SURVEY.md §3 call stacks) as plain functions over a :class:`Config`.
 
 ``gbm_risk`` dispatches across the engines by config:
-- ``qmc="none"``   → the chunked/resumable engine (Pallas kernel on TPU, lax
-  elsewhere), optionally antithetic;
+- ``qmc="none"``   → the chunked/resumable engine (fused kernel on the GPU,
+  lax elsewhere), optionally antithetic;
 - ``qmc="sobol"|"halton"`` → quasi-MC: terminal-exact low-discrepancy sampling
   (one Gaussian per path — the variance-optimal estimator for terminal risk);
 - ``mesh=...``     → the shard_map path with psum'd moments/sketch (multi-chip).
@@ -30,6 +30,7 @@ from mcport.models.gbm import (
     portfolio_terminal_returns,
 )
 from mcport.models.qmc import qmc_normals
+from mcport.ops.dispatch import use_kernels
 from mcport.ops.quantile import auto_sketch, histogram, sketch_var_cvar
 from mcport.stats.asset_stats import STAT_COLUMNS, asset_stats_batch
 
@@ -167,7 +168,7 @@ def gbm_risk(
             jnp.asarray(params.chol_step, jnp.dtype(g.dtype)),
             jnp.asarray(w, jnp.dtype(g.dtype)),
             n_paths=g.n_paths, n_steps=g.n_steps, mesh=mesh, alpha=alpha,
-            sketch=sketch, use_pallas=g.use_pallas and jax.default_backend() == "tpu",
+            sketch=sketch, use_pallas=use_kernels(g.use_pallas),
             antithetic=g.antithetic,
             t_df=g.t_dof if g.innovations == "student_t" else None,
         )
@@ -229,7 +230,7 @@ def bootstrap_tail_risk(
     p_restart: float = 0.2,
 ):
     """Distribution-free tail risk by stationary block bootstrap over the
-    assembled historical returns (models.bootstrap; fused kernel on TPU)."""
+    assembled historical returns (models.bootstrap)."""
     import jax as _jax
 
     from mcport.models.bootstrap import bootstrap_risk
@@ -240,7 +241,7 @@ def bootstrap_tail_risk(
     return bootstrap_risk(
         _jax.random.key(g.seed), data.port_rets, w,
         n_paths=g.n_paths, n_steps=g.n_steps, p_restart=p_restart,
-        alpha=config.simulation.alpha, seed=g.seed,
+        alpha=config.simulation.alpha,
     )
 
 
@@ -456,7 +457,7 @@ def path_tail_risk(
     :func:`compare_tail_risk`: where those settle at the horizon, this
     evolves full paths and reports {var, cvar, port_mean, dd_mean,
     dd_median, dd_p95, model, n_paths} from the fused path-stats engines
-    (mcport.engine.path_risk; Pallas kernels on TPU). ``model`` is "gbm"
+    (mcport.engine.path_risk; fused kernels on the GPU for gbm). ``model`` is "gbm"
     (correlated log-normal, ``rebalance`` selects buy-and-hold vs per-period
     rebalancing — GARCH/bootstrap are inherently rebalanced), "student_t"
     (GBM drift/covariance with unit-variance Student-t shocks at the
@@ -719,8 +720,7 @@ def compare_tail_risk(
     """One portfolio, every model family: {model: {var, cvar, mean}}.
 
     Runs GBM (normal), GBM (student-t, moment-fitted dof), CCC-GARCH,
-    DCC-GARCH (fused Pallas kernel on TPU — ~1.4 s Mosaic compile, 6.8x the
-    lax scan; see ops/pallas_dcc.py), Merton systemic jumps
+    DCC-GARCH, Merton systemic jumps
     (threshold-calibrated), Heston stochastic volatility (moment-matched
     CIR variance with leverage), and the stationary block bootstrap on the same
     universe/weights/config — the risk-model sensitivity view no single
@@ -803,8 +803,7 @@ def compare_tail_risk(
         out["heston"] = {"error": str(e)}
 
     br = bootstrap_risk(_jax.random.key(g.seed), data.port_rets, w,
-                        n_paths=g.n_paths, n_steps=g.n_steps, alpha=alpha,
-                        seed=g.seed)
+                        n_paths=g.n_paths, n_steps=g.n_steps, alpha=alpha)
     out["block_bootstrap"] = pack(br.var, br.cvar, br.port_mean)
     return out
 

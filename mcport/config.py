@@ -16,7 +16,7 @@ whose defaults equal the reference's values:
 - forecast horizons [1, 3, 6] (app.py:789)
 - payoff grid: 100 points over 0.5x-1.5x spot (app.py:593)
 
-On top of the reference surface it adds the TPU-engine knobs required by
+On top of the reference surface it adds the Monte Carlo engine knobs required by
 BASELINE.json (GBM paths/steps, variance reduction, sharding, quantile sketch).
 """
 
@@ -107,12 +107,14 @@ class GBMConfig:
     qmc: str = "none"                  # none | sobol | halton
     dtype: str = "float32"
     path_block: int = 8_192            # paths per device-side block (chunked scan)
-    use_pallas: bool = True            # fused Pallas kernel on TPU, lax fallback
+    use_pallas: bool | None = None     # fused kernel: None = on the GPU only
+                                       # (mcport.ops.dispatch), False = lax,
+                                       # True = demand it (error off the GPU)
     auto_sketch: bool = True           # derive the quantile-sketch range from the
                                        # fitted params (log1p space); False = use
                                        # Config.sketch verbatim
     innovations: str = "normal"        # "normal" | "student_t" (fat tails; the
-                                       # fused kernel draws polar-t on TPU)
+                                       # fused kernel draws polar t)
     t_dof: float = 6.0                 # Student-t degrees of freedom (see
                                        # models.gbm.estimate_t_dof)
     ci_boot: int = 0                   # >0: bootstrap-the-sketch error bars on
@@ -123,9 +125,8 @@ class GBMConfig:
                                        # draw streams or checkpoint digests
     bm: str = "poly"                   # kernel normal tier: "poly" (exact-f32
                                        # default) | "poly_fast" (degree-5
-                                       # screening fits, ~+30% terminal
-                                       # throughput, draw error <= ~1e-5 —
-                                       # Pallas path only; the lax fallback
+                                       # screening fits, draw error <= ~1.5e-4
+                                       # — kernel path only; the lax form
                                        # always draws exact normals)
 
 

@@ -1,4 +1,9 @@
-from mcport.data.csv_loader import CsvFormatError, read_csv_file, try_read_csv_file
+from mcport.data.csv_loader import (
+    CsvFormatError,
+    PriceSeries,
+    read_csv_file,
+    try_read_csv_file,
+)
 from mcport.data.fast_loader import build_native, native_available, read_csv_file_native
 from mcport.data.pipeline import (
     PriceData,
@@ -9,12 +14,12 @@ from mcport.data.pipeline import (
     portfolio_returns,
     stats_returns,
 )
-from mcport.data.yf_loader import download_prices, get_price_dataframe_from_yf
 
 __all__ = [
     "read_csv_file",
     "try_read_csv_file",
     "CsvFormatError",
+    "PriceSeries",
     "combine_prices",
     "dedupe_names",
     "stats_returns",
@@ -22,8 +27,6 @@ __all__ = [
     "annualized_moments",
     "load_universe",
     "PriceData",
-    "get_price_dataframe_from_yf",
-    "download_prices",
     "read_csv_file_native",
     "native_available",
     "build_native",

@@ -1,14 +1,15 @@
 """Native (C++) CSV fast path — ctypes binding over ``mcport/_native/fastcsv``.
 
-Division of labor: Python/pandas keeps the *semantic* work it does once per file
-(header sniffing, column selection — the reference's exact rules, see
-:mod:`mcport.data.csv_loader`); the C++ unit does the per-row hot work (quoted
-splitting, thousands stripping, date/float parsing). Output is verified equal to
-the pandas loader on every bundled fixture (tests/test_fast_loader.py).
+Division of labor: Python keeps the *semantic* work it does once per file
+(header sniffing, column selection — the reference's exact rules,
+:func:`mcport.data.csv_loader.find_columns`); the C++ unit does the per-row hot
+work (quoted splitting, thousands stripping, date/float parsing). Output is
+verified equal to the csv loader and to pandas on every bundled fixture
+(tests/test_fast_loader.py).
 
-The shared library builds on demand with ``make -C mcport/_native`` (g++ is a
-baked-in tool); when unavailable (no compiler), everything falls back to the
-pandas loader — the fast path is an accelerator, never a requirement.
+The shared library builds on demand with ``make -C mcport/_native``; without
+a compiler, ``load_universe(loader="auto")`` uses the csv loader — the fast
+path is an accelerator, never a requirement.
 """
 
 from __future__ import annotations
@@ -18,10 +19,14 @@ import subprocess
 from pathlib import Path
 
 import numpy as np
-import pandas as pd
 
 from mcport.config import DataConfig
-from mcport.data.csv_loader import CsvFormatError, _norm, _read_raw
+from mcport.data.csv_loader import (
+    CsvFormatError,
+    PriceSeries,
+    _rows,
+    find_columns,
+)
 
 __all__ = ["native_available", "read_csv_file_native", "build_native"]
 
@@ -66,45 +71,23 @@ def native_available() -> bool:
     return _load_lib() is not None
 
 
-def _pick_columns(path: Path, config: DataConfig) -> tuple[int, int, int]:
-    """(date_col, price_col, skip_rows) using the reference's selection rules
-    (app.py:99-120) on just the header region — pandas reads a 6-row prefix."""
-    head = _read_raw(path, nrows=config.header_scan_rows, header=None)
-    header_idx = None
-    for i in range(len(head)):
-        row = [_norm(x) for x in head.iloc[i].tolist()]
-        if any(x == "date" for x in row):
-            header_idx = i
-            header_row = row
-            break
-    if header_idx is None:
-        raise CsvFormatError("no header row containing a 'date' column found")
-    date_col = header_row.index("date")
-    price_candidates = [
-        j for j, c in enumerate(header_row) if c in config.price_priority
-    ]
-    if not price_candidates:
-        price_candidates = [j for j in range(len(header_row)) if j != date_col]
-    if not price_candidates:
-        raise CsvFormatError("no usable price column found")
-    return date_col, price_candidates[0], header_idx + 1
-
-
 def read_csv_file_native(
     path: str | Path, config: DataConfig = DataConfig()
-) -> pd.DataFrame:
+) -> PriceSeries:
     """Native-parsed equivalent of :func:`mcport.data.csv_loader.read_csv_file`.
 
     Raises :class:`CsvFormatError` on format problems; raises RuntimeError when
-    the native library cannot be built (callers should fall back to pandas).
+    the native library cannot be built (callers should use the csv loader).
     """
     lib = _load_lib()
     if lib is None:
         raise RuntimeError("native fastcsv library unavailable (no compiler?)")
     path = Path(path)
-    date_col, price_col, skip = _pick_columns(path, config)
-
     buf = path.read_bytes()
+    lines = buf.split(b"\n", config.header_scan_rows)[:config.header_scan_rows]
+    head = _rows(b"\n".join(lines).decode("utf-8-sig"))
+    date_col, price_col, skip = find_columns(head, config)
+
     max_rows = buf.count(b"\n") + 2
     days = np.empty(max_rows, np.int64)
     prices = np.empty(max_rows, np.float64)
@@ -119,5 +102,5 @@ def read_csv_file_native(
         raise CsvFormatError(f"native parser rejected {path.name}")
     if n == 0:
         raise CsvFormatError("no valid rows left after type coercion")
-    dates = pd.to_datetime(days[:n], unit="D").astype("datetime64[us]")
-    return pd.DataFrame({"Date": dates, "Price": prices[:n]})
+    return PriceSeries(days[:n].astype("datetime64[D]").astype("datetime64[s]"),
+                       prices[:n].copy())

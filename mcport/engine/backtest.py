@@ -18,7 +18,7 @@ Built-in rules span the framework's allocator tiers: equal weight, inverse
 volatility, exact min-variance and max-Sharpe (PGD QP, frontier_opt), exact
 min-CVaR over the window scenarios (cvar_opt), exact min-CDaR over the
 window path (cdar_opt), simulated drawdown-budget frontier over the next
-horizon (dd_budget: drawdown_frontier — the multi-dd kernel on TPU), ERC
+horizon (dd_budget: drawdown_frontier — the multi-dd kernel on the GPU), ERC
 risk parity and HRP (risk_parity). Custom rules are any
 ``f(window_returns) -> weights``.
 
@@ -116,7 +116,7 @@ def _rule_dd_budget(r: np.ndarray, dd_budget: float = 0.30,
     """Max simulated return s.t. a p95 max-drawdown budget over the NEXT
     horizon: fit per-step GBM moments to the window's log returns, run the
     drawdown-constrained frontier (engine.drawdown_frontier — the multi-dd
-    kernel on TPU, lax elsewhere), and hold the feasible-return argmax.
+    kernel on the GPU, lax elsewhere), and hold the feasible-return argmax.
     Deterministic (fixed candidate/path key); equal weight when nothing
     satisfies the budget. Opt-in by name — NOT part of the ``rules=None``
     default set (a simulated frontier per rebalance date is orders of

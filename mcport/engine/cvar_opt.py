@@ -14,11 +14,11 @@ whose (w, a) optimum has a* = the beta-VaR of losses and objective value
 CVaR_beta (Rockafellar & Uryasev 2000). A lam sweep traces the mean-CVaR
 frontier exactly, the tail analogue of the mean-variance frontier.
 
-TPU mapping: the non-smooth hinge is annealed through a softplus temperature
+Device mapping: the non-smooth hinge is annealed through a softplus temperature
 schedule and each stage solved by Nesterov projected gradient with a step from
 a power-iterated curvature bound — fixed iteration counts, no data-dependent
 control flow, and the whole lam sweep is ONE vmapped program whose per-iterate
-cost is an (N, A) x (A, L) MXU matmul. The reported metrics are re-evaluated
+cost is an (N, A) x (A, L) matmul. The reported metrics are re-evaluated
 EXACTLY (lax.top_k tail means, same convention as simulated_frontier) so the
 smoothing only steers the search, never the answer.
 """

@@ -10,10 +10,10 @@ mean-variance frontier
 solved for a sweep of risk-aversion parameters ``lam`` by Nesterov-accelerated
 projected gradient descent — each subproblem is convex (L = 2 lammax(Sigma)),
 the projection onto the capped simplex is a vectorized bisection, and the whole
-lam-sweep runs as ONE vmapped program (the (L, A) iterates ride the MXU).
+lam-sweep runs as ONE vmapped program (the (L, A) iterates are one batched matmul).
 Max-Sharpe / min-variance / target-risk optima read off the swept frontier.
 
-TPU mapping: no data-dependent Python control flow — fixed-iteration Nesterov
+Device mapping: no data-dependent Python control flow — fixed-iteration Nesterov
 loop (`lax.fori_loop`), fixed-iteration bisection, power iteration for lammax.
 Everything jits once for a given (A, n_lambda).
 """

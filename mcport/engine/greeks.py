@@ -31,7 +31,7 @@ Estimator notes (the math that makes the autodiff output a VALID estimator):
   reported as ``euler_gap_*`` self-diagnostics.
 * **Streams.** Sensitivities re-simulate with the lax tier (scan +
   fold_in-per-step, `models.gbm.terminal_log_returns`), which XLA
-  differentiates end-to-end on TPU; the Pallas kernels are primal-only by
+  differentiates end-to-end; the fused kernels are primal-only by
   design. Same law as the kernel engines, independent stream — documented
   framework-wide convention.
 

@@ -192,7 +192,7 @@ def path_stress_test(
     Same shocked-parameter transforms as :func:`stress_test`, but every
     scenario re-runs the path-risk engine (terminal VaR/CVaR plus the
     simulated max-drawdown distribution — :mod:`mcport.engine.path_risk`,
-    fused kernels on TPU) with the same seed/grid, so
+    fused kernels on the GPU) with the same seed/grid, so
     ``d_dd_p95``/``d_dd_median`` deltas isolate the shock's effect on the
     drawdown profile — the question terminal stress can't answer: "how much
     deeper do in-horizon drawdowns get if vol doubles / correlations

@@ -16,7 +16,7 @@ default for d >= 1), with two estimators:
 
 Gradients come from ``jax.grad``; the 2-parameter optimization uses scipy
 L-BFGS-B on host (the fit is a few-hundred-point series; forecast-tier work, not
-the TPU hot path).
+the device hot path).
 
 Forecasts integrate back to the undifferenced scale, matching
 ``ARIMA(...).fit().forecast(steps=h)`` semantics used at app.py:345,353.

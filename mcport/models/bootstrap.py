@@ -8,10 +8,10 @@ cross-asset distribution exactly (each resampled time step is one real (A,)
 return row) and short-range serial dependence (expected block length ``1/p``,
 Politis-Romano stationary bootstrap with circular wrap).
 
-TPU mapping: paths ride the lane axis; time is a ``lax.scan`` whose carry is
-(row index per path, compounded per-asset gross return). The per-step state
-update is index arithmetic + one gather from the tiny (T, A) history (VMEM-
-resident) — no Gaussian machinery at all. Draws are Threefry counter-based per
+Device mapping: paths are the vector axis; time is a ``lax.scan`` whose carry
+is (row index per path, compounded per-asset gross return). The per-step state
+update is index arithmetic + one row gather from the tiny (T, A) history
+(cache-resident) — no Gaussian machinery at all. Draws are Threefry counter-based per
 (seed, step), so paths are reproducible and shardable by the same seed
 arithmetic as the GBM engines.
 """
@@ -167,22 +167,12 @@ def _auto_sketch_from_history(returns: np.ndarray, n_steps: int,
 
 
 @partial(jax.jit, static_argnames=("n_paths", "n_steps", "p_restart", "alpha",
-                                   "sketch", "dtype", "use_pallas"))
+                                   "sketch", "dtype"))
 def _bootstrap_risk_impl(
-    key, seed, returns, weights, n_paths, n_steps, p_restart, alpha, sketch,
-    dtype, use_pallas
+    key, returns, weights, n_paths, n_steps, p_restart, alpha, sketch, dtype
 ):
-    if use_pallas:
-        from mcport.ops.pallas_bootstrap import pallas_bootstrap_terminal_returns
-
-        # stride user seeds so each owns SEED_STRIDE disjoint block-program
-        # streams (seeding.py policy; the kernel adds program_id per block)
-        term = pallas_bootstrap_terminal_returns(
-            seed * SEED_STRIDE, returns, n_paths, n_steps, p_restart
-        ).astype(dtype)
-    else:
-        term = bootstrap_terminal_returns(key, returns, n_paths, n_steps,
-                                          p_restart, dtype)
+    term = bootstrap_terminal_returns(key, returns, n_paths, n_steps,
+                                      p_restart, dtype)
     port = term @ jnp.asarray(weights, dtype)
     counts = histogram(port, sketch)
     v, c = sketch_var_cvar(counts, alpha, sketch)
@@ -199,31 +189,15 @@ def bootstrap_risk(
     alpha: float = 0.95,
     sketch: SketchConfig | None = None,
     dtype=jnp.float32,
-    use_pallas: bool | None = None,
-    seed: int | None = None,
 ) -> BootstrapRisk:
     """Distribution-free portfolio tail risk from resampled historical paths.
 
     ``sketch=None`` derives a guaranteed-covering log1p range from the history
     (the compounded best/worst rows bound every possible path).
-    ``use_pallas=None`` auto-selects the fused one-hot-MXU kernel on TPU (the
-    lax gather path is ~50x slower there). The kernel's counter-addressed
-    hardware-PRNG streams are indexed by an integer ``seed``, not the key;
-    with ``seed=None`` (default) it is DERIVED from ``key`` so distinct keys
-    give independent runs on every backend — pass an explicit ``seed`` only
-    to pin kernel streams (checkpoint/sharding resume).
     """
     if sketch is None:
         sketch = _auto_sketch_from_history(returns, n_steps)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if seed is None:
-        # keyed runs must differ on the kernel path too (the pre-fix default
-        # seed=0 made every keyed TPU run bit-identical — a silent
-        # platform-dependent reproducibility trap)
-        seed = jax.random.randint(key, (), 0, 1 << 30)
     return _bootstrap_risk_impl(
-        key, jnp.asarray(seed, jnp.int32), jnp.asarray(returns),
-        jnp.asarray(weights), n_paths, n_steps, p_restart, alpha, sketch,
-        dtype, use_pallas,
+        key, jnp.asarray(returns), jnp.asarray(weights), n_paths, n_steps,
+        p_restart, alpha, sketch, dtype,
     )

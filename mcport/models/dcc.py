@@ -11,20 +11,14 @@ on top of the SAME univariate GARCH(1,1) variance recursions (shared
 estimation step — Engle's two-step QMLE: univariate fits first, then (a, b)
 by maximizing the correlation log-likelihood of the standardized residuals).
 
-TPU mapping: the (a, b) likelihood surface is evaluated as ONE vmapped
+Device mapping: the (a, b) likelihood surface is evaluated as ONE vmapped
 ``lax.scan`` over a feasible grid (coarse-to-fine; no line searches, no
-data-dependent control flow). Simulation auto-selects the fused Pallas
-kernel on TPU (:mod:`mcport.ops.pallas_dcc` — VMEM-resident Q planes,
-column-slab Cholesky; measured 0.74-0.81e9 path-steps/s at A=15/1M paths
-(unroll=2 default) with a ~1.4 s Mosaic compile, vs this module's lax scan
-at 0.10e9 / 13 s XLA compile — benchmarks/bench_dcc.py). The lax path here is the tested
-reference form: a ``lax.scan`` whose per-path (A, A) correlation state
-lives as A(A+1)/2 CONTIGUOUS (n,) lower-triangle vectors, with the Cholesky
-unrolled (Cholesky-Banachiewicz, path batch as the vector axis) into pure
-elementwise ops — XLA's batched small-matrix ``linalg.cholesky`` scalarizes
-on TPU (measured 0.001e9 path-steps/s; the (n, A, A) unrolled form
-0.067e9; the triangle layout 130x that). Memory is n_paths * A(A+1)/2
-floats for the Q carry; chunk paths at the caller for very large runs.
+data-dependent control flow). Simulation is a ``lax.scan`` whose per-path
+(A, A) correlation state lives as A(A+1)/2 CONTIGUOUS (n,) lower-triangle
+vectors, with the Cholesky unrolled (Cholesky-Banachiewicz, path batch as the
+vector axis) into pure elementwise ops instead of a batched small-matrix
+``linalg.cholesky`` per step. Memory is n_paths * A(A+1)/2 floats for the Q
+carry; chunk paths at the caller for very large runs.
 
 Reference anchor: the reference has no multivariate vol model at all
 (GARCH(1,1) appears only in forecast bands, /root/reference/app.py:347-350);
@@ -148,8 +142,7 @@ def estimate_dcc_garch(returns: np.ndarray) -> DCCGarchParams:
 def _correlate_unrolled(q: Array, z: Array) -> Array:
     """``chol(R) @ z`` per path via an UNROLLED Cholesky-Banachiewicz
     (path batch as the vector axis). Kept as the tested reference form of
-    the triangle math used inside :func:`_dcc_simulate`; XLA's batched
-    ``linalg.cholesky`` scalarizes on TPU (measured 0.001e9 path-steps/s)."""
+    the triangle math used inside :func:`_dcc_simulate`."""
     a = q.shape[-1]
     q_tri = {(i, j): q[:, i, j] for i in range(a) for j in range(i + 1)}
     cols = _chol_cols_from_tri(q_tri, a)
@@ -335,25 +328,8 @@ def dcc_path_stats(
 def dcc_terminal_returns(
     key: Array, params: DCCGarchParams, n_paths: int, n_steps: int,
     dtype=jnp.float32,
-    use_pallas: bool | None = None,
-    seed: int | None = None,
 ) -> Array:
-    """(n_paths, A) terminal compounded simple returns under DCC-GARCH(1,1).
-
-    ``use_pallas=None`` auto-selects the fused VMEM kernel on TPU
-    (:mod:`mcport.ops.pallas_dcc` — seconds-scale compile and ~8x the lax
-    scan's throughput there; same law, independent stream). ``seed`` pins the
-    kernel's counter-addressed streams; by default it is derived from ``key``
-    so distinct keys give independent runs on every backend."""
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas:
-        from mcport.ops.pallas_dcc import pallas_dcc_terminal_returns
-
-        if seed is None:
-            seed = jax.random.randint(key, (), 0, 1 << 30)
-        return pallas_dcc_terminal_returns(
-            jnp.asarray(seed, jnp.int32), params, n_paths, n_steps)
+    """(n_paths, A) terminal compounded simple returns under DCC-GARCH(1,1)."""
     b = params.base
     s = np.asarray(b.corr_chol) @ np.asarray(b.corr_chol).T
     return _dcc_simulate(

@@ -270,7 +270,7 @@ def portfolio_terminal_returns(terminal_log: Array, weights: Array) -> Array:
     """Portfolio simple return per path: sum_a w_a (exp(logR_a) - 1).
 
     weights (A,) or (W, A) → returns (paths,) or (paths, W); the (paths, A) x
-    (A, W) contraction is the MXU-heavy op when scoring many candidate portfolios
+    (A, W) contraction is the matmul-heavy op when scoring many candidate portfolios
     against simulated paths.
     """
     gross = jnp.exp(jnp.asarray(terminal_log)) - 1.0
@@ -313,7 +313,7 @@ def _student_t_polar(key: Array, df: float, shape, dtype) -> Array:
     T = sqrt(df * (U1^(-2/df) - 1)) * cos(2 pi U2) ~ t_df.
 
     Pure elementwise (ln/exp/sqrt/cos) — ``jax.random.t``'s gamma rejection
-    sampler measured ~100x slower on TPU (the dirichlet lesson again). One t
+    sampler is a data-dependent loop per draw (the dirichlet lesson again). One t
     per two uniforms; quantile parity vs jax.random.t pinned in tests through
     the 0.1% tails.
     """

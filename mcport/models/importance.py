@@ -14,7 +14,7 @@ lives. The tilt direction is the most-likely-failure direction of the
 linearized portfolio, u = L'w / ||L'w||, and the magnitude targets the
 requested quantile (theta = Phi^{-1}(1 - alpha) * u).
 
-TPU mapping: one (paths, A) Gaussian draw + elementwise reweighting; tail
+Device mapping: one (paths, A) Gaussian draw + elementwise reweighting; tail
 statistics reduce through the SAME mergeable histogram sketch as everywhere
 else — weighted counts are just masses, so sketch quantiles/tail-means work
 unchanged (and still psum across a mesh).

@@ -27,7 +27,7 @@ threshold, estimate (lambda, muJ, sigJ) from those steps, and re-estimate the
 diffusion moments from the remaining steps so diffusion vol is not inflated
 by jumps.
 
-TPU mapping: one (paths, A) Gaussian draw + two per-path scalars; everything
+Device mapping: one (paths, A) Gaussian draw + two per-path scalars; everything
 is a fixed-shape jnp program sharing the sketch/moment reducers.
 """
 

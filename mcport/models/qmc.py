@@ -8,7 +8,7 @@ Two generators feed the exact-terminal GBM sampler
 - **Sobol** — ``scipy.stats.qmc.Sobol`` (Joe-Kuo direction numbers, Owen
   scrambling) generated host-side; QMC point generation is a data-loader-tier
   cost next to path simulation, so host generation + one transfer is the right
-  TPU split and avoids re-deriving direction-number tables.
+  host/device split and avoids re-deriving direction-number tables.
 
 Uniforms map to standard normals via the inverse normal CDF (``ndtri``), which
 preserves the low-discrepancy structure (unlike Box-Muller).

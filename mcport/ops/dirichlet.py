@@ -5,7 +5,7 @@ Python loop (app.py:699-707); candidates that never satisfy the per-asset min/ma
 weight bounds are silently skipped, so the simulation can yield fewer than
 n_portfolios points (SURVEY.md §2 "rejection-sampling fallthrough").
 
-TPU-native design: draw the whole (N, A) batch at once from Dirichlet(1) and run a
+Device design: draw the whole (N, A) batch at once from Dirichlet(1) and run a
 ``lax.while_loop`` that re-draws only the still-invalid rows, up to the same retry
 budget. Control flow is compiler-friendly (no data-dependent Python loops), exits
 after one round in the common unconstrained case, and the returned validity mask

@@ -8,7 +8,7 @@ chips without materializing all returns on one host. The reference's
   compensation**: each accumulator carries a low-order correction term, and batch
   folds chunk the sample so per-chunk reductions stay short. The f32 accumulation
   error at 16.7M paths is then far below the 1e-6 moment-parity bar (BASELINE.json:5)
-  without needing f64 (which TPUs lack in hardware). An optional ``shift``
+  without needing f64 (slow or absent on accelerators). An optional ``shift``
   (the analytically-known terminal drift) removes the ``E[x^2] - mean^2``
   cancellation from the covariance finalization. Mergeable by addition, so
   ``psum`` over a mesh gives the global moments (the psum itself adds one
@@ -95,7 +95,7 @@ def update_moments(
     """Fold an (n, A) batch into the accumulator.
 
     The batch is split into ``chunk``-row sub-blocks; each sub-block reduces with
-    one MXU outer product, and sub-block results fold into the state through
+    one batched outer product, and sub-block results fold into the state through
     compensated adds. Short per-chunk reductions + exact cross-chunk accumulation
     keep the f32 error at 16.7M paths ~1e-9 relative (test_moment_scale.py).
 
@@ -113,7 +113,7 @@ def update_moments(
         x = jnp.pad(x, ((0, pad), (0, 0)))  # zero rows are exact no-ops for sums
     xr = x.reshape(n_chunks, chunk, a)
     part_sums = xr.sum(axis=1)                        # (C, A)
-    part_outers = jnp.einsum("cqa,cqb->cab", xr, xr)  # (C, A, A) batched on the MXU
+    part_outers = jnp.einsum("cqa,cqb->cab", xr, xr)  # (C, A, A) batched matmul
 
     def fold(carry, part):
         s, sc, o, oc = carry

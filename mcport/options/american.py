@@ -9,11 +9,11 @@ their value exceeds intrinsic settlement by the early-exercise premium.
 This module adds that tier: regression-based optimal stopping (Longstaff &
 Schwartz 2001) over simulated risk-neutral paths.
 
-TPU mapping
------------
+Device mapping
+--------------
 LSMC is regression inside a backward time scan — per step one (N, K) basis
 matrix, a (K, K) normal-equation solve, and an (N, K) @ (K,) continuation
-estimate. The N-sized matmuls ride the MXU; the K=4 solve is trivial. The
+estimate. The N-sized matmuls dominate; the K=4 solve is trivial. The
 scan carries only the (N,) cashflow vector; the price paths are simulated
 once per asset (``lax.map`` over assets, so peak memory is one asset's
 (T, N) path matrix, never (T, N, A)). All shapes static; exercise decisions

@@ -24,7 +24,7 @@ prev). Two compositions with simulated paths:
 Assets with no legs get the implicit BUY_ASSET qty-1 leg, so their hedged
 return is exactly the plain simple return — parity with app.py:659-667.
 
-Everything here is an elementwise (VPU) transform of the (N, A) terminal
+Everything here is an elementwise transform of the (N, A) terminal
 matrix the engines already produce: piecewise-linear in S, fusing into the
 surrounding XLA program. Per-leg params are dense (A, L) arrays (L = max legs
 per asset, qty-0 padding) so the transform is one broadcasted select chain,

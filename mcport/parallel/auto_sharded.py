@@ -1,7 +1,7 @@
 """Compiler-parallelized weight search: jit + NamedSharding, no explicit collectives.
 
 The shard_map engines in this package place every collective by hand; this module
-demonstrates the other half of the TPU recipe ("pick a mesh, annotate shardings,
+demonstrates the other half of the JAX sharding recipe ("pick a mesh, annotate shardings,
 let XLA insert collectives"): the candidate matrix is a global array sharded over
 the mesh's candidate axis, the evaluation function is ordinary single-device
 jnp code under ``jit``, and XLA's SPMD partitioner derives the parallel program —

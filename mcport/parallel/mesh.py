@@ -1,17 +1,17 @@
 """Device-mesh construction and multi-host initialization.
 
 The reference has no distributed layer at all (one Streamlit process, SURVEY.md §5
-"Distributed communication backend: absent"); this module is the TPU-native
-equivalent mandated by BASELINE.json:5 — paths shard across chips over ICI via XLA
+"Distributed communication backend: absent"); this module is the JAX-native
+equivalent mandated by BASELINE.json:5 — paths shard across devices through XLA
 collectives, not a message-passing port.
 
 Axes:
 - ``paths`` — the embarrassingly-parallel Monte-Carlo axis (data parallel).
 - ``cand`` — candidate-portfolio axis for the weight search (optional 2nd axis).
 
-Variance then shrinks linearly with pod size: each device owns an independent
+Variance then shrinks linearly with the device count: each device owns an independent
 counter-addressed slice of the path space, and only O(bins + A^2) reduction
-traffic crosses ICI per call.
+traffic crosses the interconnect per call.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ def make_mesh_2d(
 
 def maybe_initialize_distributed(**kwargs) -> bool:
     """Initialize JAX multi-host coordination when running under a multi-process
-    launcher (TPU pod). No-op (returns False) in single-process runs.
+    launcher (several hosts). No-op (returns False) in single-process runs.
 
     The reference's analogue is nothing; this is the jax.distributed bootstrap
     required before any multi-host mesh is built.

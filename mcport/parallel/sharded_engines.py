@@ -250,7 +250,7 @@ def sharded_family_path_risk(
     family counterpart of
     :func:`sharded_path_risk`, same communication shape (each device evolves
     its own counter-seeded path slice through the lax path-stats engines and
-    only the two histogram sketches + two scalars psum across ICI).
+    only the two histogram sketches + two scalars psum across devices).
     ``hedge`` (a HedgeSpec) + ``s0`` switch every device to hedged
     per-period option settlement. Returns a replicated
     :class:`mcport.engine.path_risk.PathRiskReport`."""
@@ -340,7 +340,7 @@ def sharded_simulated_frontier(
     """Candidate-sharded simulated-frontier search → (best weights, best metric).
 
     Every device draws the SAME terminal path set (identical key — replication by
-    construction beats broadcasting 16k x A floats over ICI) and its OWN candidate
+    construction beats broadcasting 16k x A floats between devices) and its OWN candidate
     shard; winners resolve via one tiny all_gather.
 
     ``hedge_args = (s0, *HedgeSpec.arrays)`` scores candidates against HEDGED
@@ -414,7 +414,7 @@ def sharded_bootstrap_risk(
 
     Same zero-input-communication pattern as the GBM engines: every device
     resamples its own path slice from ``fold_in(key, axis_index)`` and only the
-    (n_bins,) counts + two scalars cross ICI. Returns a
+    (n_bins,) counts + two scalars cross devices. Returns a
     :class:`mcport.models.bootstrap.BootstrapRisk` (replicated).
     """
     from mcport.models.bootstrap import (
@@ -871,24 +871,20 @@ def sharded_garch_risk(
     sketch: SketchConfig | None = None,
     axis: str = "paths",
     t_df: float | None = None,
-    use_pallas: bool = False,
 ):
     """CCC-GARCH portfolio tail risk over a mesh (psum'd covering sketch).
 
     Mesh form of the single-chip GARCH engine (api.compare_tail_risk /
     CLI garch-risk): each device simulates its own counter-seeded slice of
-    terminal compounded returns under the stochastic-vol recursion — lax scan
-    by default, the fused Pallas kernel with ``use_pallas=True`` (Gaussian
-    shocks only) — and the only cross-device traffic is the histogram/sum
-    psum. Returns ``(var, cvar, port_mean)`` floats.
+    terminal compounded returns under the stochastic-vol recursion (lax scan)
+    and the only cross-device traffic is the histogram/sum psum. Returns
+    ``(var, cvar, port_mean)`` floats.
     """
     from mcport.config import COVERING_LOG1P_SKETCH
     from mcport.models.garch_mc import garch_terminal_returns
 
     if sketch is None:
         sketch = COVERING_LOG1P_SKETCH
-    if use_pallas and t_df is not None:
-        raise ValueError("the fused GARCH kernel is Gaussian-shock only")
     n_dev = mesh.shape[axis]
     if n_paths % n_dev:
         raise ValueError(f"n_paths {n_paths} not divisible by mesh axis size {n_dev}")
@@ -898,14 +894,8 @@ def sharded_garch_risk(
     def local(seed, w):
         idx = jax.lax.axis_index(axis)
         dev_seed = (seed + idx * SEED_STRIDE).astype(jnp.int32)
-        if use_pallas:
-            from mcport.ops.pallas_garch import pallas_garch_terminal_returns
-
-            term = pallas_garch_terminal_returns(dev_seed, params, n_local, n_steps)
-        else:
-            key = jax.random.fold_in(jax.random.PRNGKey(0), dev_seed)
-            term = garch_terminal_returns(key, params, n_local, n_steps,
-                                          t_df=t_df)
+        key = jax.random.fold_in(jax.random.PRNGKey(0), dev_seed)
+        term = garch_terminal_returns(key, params, n_local, n_steps, t_df=t_df)
         port = term @ w
         psum = lambda x: jax.lax.psum(x, axis)
         hist = psum(histogram(port, sketch))
@@ -1170,7 +1160,7 @@ def sharded_american_value(
     is a textbook distributed-least-squares: every device evolves its own
     counter-seeded slice of the risk-neutral paths, and per backward step the
     (K, K) Gram matrix and (K,) moment vector of the normal equations psum
-    across the mesh — K = 4 (cubic moneyness basis), so the per-step ICI
+    across the mesh — K = 4 (cubic moneyness basis), so the per-step interconnect
     traffic is 20 floats, never a gather of paths. Every device then solves
     the identical K×K system and applies the GLOBAL regression to its local
     paths; the fitted policy (betas/boundaries) is replicated by

@@ -9,7 +9,7 @@ variance shrinks linearly with pod size". Design:
 - exact global moments reduce with ``psum`` over the MomentState accumulators
   (associative adds — the mathematically exact reduction);
 - tail quantiles reduce by ``psum`` of fixed-grid histogram counts
-  (:mod:`mcport.ops.quantile`), so 16M-path VaR/CVaR crosses ICI as one
+  (:mod:`mcport.ops.quantile`), so 16M-path VaR/CVaR crosses devices as one
   (n_bins,) vector instead of 16M returns (the all-gather-free sketch path);
 - the candidate-portfolio search shards the candidate axis the same way and
   resolves the global argmax with one tiny ``all_gather`` of per-device bests.
@@ -208,7 +208,7 @@ def sharded_weight_search(
     Each device samples and scores ``n_candidates / n_dev`` constrained Dirichlet
     candidates locally (the (B, A) x (A, T) series matmul stays on-device), then a
     single ``all_gather`` of per-device winners resolves the global optimum — the
-    1M-candidate search of BASELINE.json:9 moves no candidate clouds across ICI.
+    1M-candidate search of BASELINE.json:9 moves no candidate clouds between devices.
 
     Full objective parity with the single-chip engine (weight_search.py):
 

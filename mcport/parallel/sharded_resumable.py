@@ -21,7 +21,7 @@ engine (:mod:`mcport.parallel.sharded_mc`) and the resumable block-cursor engine
 
 Reference anchor: the reference has no checkpointing or parallelism at all
 (SURVEY.md §5 "Checkpoint / resume", "Distributed communication backend"); this
-is the TPU-native preemptible-pod form of BASELINE.json:10's 16M-path config.
+is the preemptible multi-device form of BASELINE.json:10's 16M-path config.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from mcport.config import GBMConfig, SketchConfig
 from mcport.engine.mc_engine import RiskReport, _run_digest
 from mcport.models.gbm import GBMParams, portfolio_terminal_returns, terminal_log_returns
+from mcport.ops.dispatch import use_kernels
 from mcport.ops.quantile import (
     MomentState,
     auto_sketch,
@@ -312,8 +313,8 @@ def run_sharded_resumable_mc(
             raise ValueError("sketch config conflicts with the checkpoint's stored sketch")
 
     dtype = jnp.dtype(config.dtype)
-    if use_pallas is None:
-        use_pallas = config.use_pallas and jax.default_backend() == "tpu"
+    use_pallas = use_kernels(config.use_pallas if use_pallas is None
+                             else use_pallas)
 
     mean_step = jnp.asarray(params.mean_step, dtype)
     chol_step = jnp.asarray(params.chol_step, dtype)

@@ -4,7 +4,7 @@
 Reproduces the reference app's surface (app.py:13-809): Persian labels, dark CSS
 theme, sidebar (upload / online download / global settings / weight bounds), and
 the four tabs (asset stats, strategies & payoff, portfolio simulation, price
-forecast) — but every computation routes through the TPU-native mcport layers
+forecast) — but every computation routes through the mcport JAX layers
 instead of inline NumPy loops.
 
 Run: ``streamlit run mcport/ui/app.py`` (streamlit+plotly are optional deps —
@@ -36,8 +36,9 @@ except ImportError as _e:  # pragma: no cover - UI tier is optional
     ) from _e
 
 from mcport.config import Config, DataConfig, PortfolioConfig, SimulationConfig
-from mcport.data import dedupe_names, read_csv_file, download_prices
+from mcport.data import PriceSeries, dedupe_names, read_csv_file
 from mcport.data.pipeline import combine_prices, stats_returns
+from mcport.data.yf_loader import download_prices
 from mcport.engine import run_simulation
 from mcport.models import forecast_prices
 from mcport.options import Legs, strategy_legs
@@ -128,7 +129,9 @@ with st.sidebar.expander("دریافت داده آنلاین 📥"):
         results = download_prices(tickers_input.split(","), start, end)
         for t, df, err in results:
             if df is not None:
-                st.session_state["downloaded_dfs"].append((t, df))
+                st.session_state["downloaded_dfs"].append((t, PriceSeries(
+                    df["Date"].to_numpy("datetime64[s]"),
+                    df["Price"].to_numpy(np.float64))))
                 st.success(f"داده {t} با موفقیت دانلود شد.")
             else:
                 st.error(err)
@@ -168,24 +171,26 @@ if not all_dfs:
     with tabs[0]:
         st.warning("⚠️ لطفاً داده‌ای بارگذاری یا دریافت کنید.")
 else:
-    resampled = combine_prices(all_dfs, data_cfg.resample_rule)
-    resampled.columns = asset_names
+    dates, prices = combine_prices(all_dfs, data_cfg.resample_rule)
+    resampled = pd.DataFrame(prices, index=pd.DatetimeIndex(dates),
+                             columns=asset_names)
     ann = data_cfg.annual_factor
 
     # lightweight PriceData stand-in built from the live widgets
     from mcport.data.pipeline import PriceData, annualized_moments, portfolio_returns
 
-    prets = portfolio_returns(resampled)
+    prets = portfolio_returns(prices)
     mean_ann, cov_ann = annualized_moments(prets, ann)
     data = PriceData(
         names=tuple(asset_names),
-        prices=resampled.to_numpy(np.float64),
-        stats_rets=stats_returns(resampled).to_numpy(np.float64),
-        port_rets=prets.to_numpy(np.float64),
+        prices=prices,
+        stats_rets=stats_returns(prices),
+        port_rets=prets,
         mean_ann=mean_ann,
         cov_ann=cov_ann,
         ann_factor=ann,
         resample_rule=data_cfg.resample_rule,
+        dates=dates,
     )
 
     # ---- tab 0: asset statistics (app.py:463-497) ----

@@ -13,7 +13,7 @@ mesh and pins the compiled HLO's collective structure:
 
 Counts are per compiled module with XLA's all-reduce combiner active, so N
 same-shaped psums that fuse into one all-reduce count as XLA emits them —
-the pinned numbers are the OBSERVED structure of the current design (ICI
+the pinned numbers are the OBSERVED structure of the current design (interconnect
 traffic per dispatch), and any drift (new gather, un-fused reduce, dropped
 psum) fails loudly. Run ``python tests/test_collective_structure.py`` to
 print a fresh census when intentionally changing an engine's comms.

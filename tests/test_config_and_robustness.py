@@ -54,10 +54,10 @@ def test_csv_loader_fuzz(rng):
     for i in range(60):
         n = int(rng.integers(1, 400))
         junk = "".join(rng.choice(alphabet, n))
-        df, err = try_read_csv_file(io.BytesIO(junk.encode()))
-        assert (df is None) == (err is not None)
-        if df is not None:
-            assert list(df.columns) == ["Date", "Price"] and len(df) > 0
+        s, err = try_read_csv_file(io.BytesIO(junk.encode()))
+        assert (s is None) == (err is not None)
+        if s is not None:
+            assert len(s.dates) == len(s.prices) > 0
 
 
 def test_csv_loader_adversarial_cases():
@@ -79,9 +79,9 @@ def test_distributed_init_noop_single_process():
 
 
 def test_matmul_precision_forced_f32():
-    """mcport forces float32 matmul precision process-wide: the TPU default is
-    single-pass bf16 operands (2.4e-3 relative — measured on v5e), which would
-    silently break the framework's 1e-6 parity contract. MCPORT_MATMUL_PRECISION
+    """mcport forces float32 matmul precision process-wide: on the GPU, XLA's
+    default runs float32 matmuls as TF32 (10-bit mantissa, ~1e-3 relative),
+    which would silently break the framework's 1e-6 parity contract. MCPORT_MATMUL_PRECISION
     overrides (mcport/__init__.py)."""
     import jax
 

@@ -9,6 +9,7 @@ import pytest
 from mcport.config import DataConfig
 from mcport.data import (
     CsvFormatError,
+    PriceSeries,
     annualized_moments,
     combine_prices,
     dedupe_names,
@@ -27,10 +28,10 @@ def _buf(text: str) -> io.BytesIO:
 def test_reads_investing_format(fixtures_dir):
     """The bundled investing.com CSVs parse fully — including comma prices the
     reference loader silently drops (SURVEY.md §2 comma-price data loss)."""
-    df = read_csv_file(fixtures_dir / "BTC_USD 7 Years Weekly.csv")
-    assert list(df.columns) == ["Date", "Price"]
-    assert len(df) > 300  # 365 weekly rows; reference loses every price >= 1000
-    assert df["Price"].max() > 10_000  # comma-separated prices survived
+    s = read_csv_file(fixtures_dir / "BTC_USD 7 Years Weekly.csv")
+    assert s.dates.dtype == np.dtype("datetime64[s]") and s.prices.dtype == np.float64
+    assert len(s) > 300  # 365 weekly rows; reference loses every price >= 1000
+    assert s.prices.max() > 10_000  # comma-separated prices survived
 
 
 def test_bug_compatible_mode(fixtures_dir):
@@ -40,38 +41,38 @@ def test_bug_compatible_mode(fixtures_dir):
     cfg = DataConfig(strip_thousands=False)
     with pytest.raises(CsvFormatError):
         read_csv_file(fixtures_dir / "BTC_USD 7 Years Weekly.csv", cfg)
-    df = read_csv_file(fixtures_dir / "ETH_USD 7 Years Weekly.csv", cfg)
-    assert df["Price"].max() < 1_000
+    s = read_csv_file(fixtures_dir / "ETH_USD 7 Years Weekly.csv", cfg)
+    assert s.prices.max() < 1_000
     full = read_csv_file(fixtures_dir / "ETH_USD 7 Years Weekly.csv")
-    assert len(df) < len(full)
+    assert len(s) < len(full)
 
 
 def test_all_fixture_csvs_load(fixtures_dir):
     for p in sorted(fixtures_dir.glob("*.csv")):
-        df = read_csv_file(p)
-        assert len(df) > 10, p.name
-        assert df["Price"].notna().all()
+        s = read_csv_file(p)
+        assert len(s) > 10, p.name
+        assert np.isfinite(s.prices).all()
 
 
 def test_header_sniff():
     """Header row found within the first 5 rows (app.py:99-109)."""
     raw = "junk1,junk2\nmeta,stuff\nDate,Close\n2024-01-01,10\n2024-01-02,11\n"
-    df = read_csv_file(_buf(raw))
-    assert len(df) == 2
-    assert df["Price"].tolist() == [10.0, 11.0]
+    s = read_csv_file(_buf(raw))
+    assert len(s) == 2
+    assert s.prices.tolist() == [10.0, 11.0]
 
 
 def test_price_column_file_order():
     """First matching price column in file order wins (app.py:115-120)."""
     raw = "Date,Open,Close\n2024-01-01,1,2\n2024-01-02,3,4\n"
-    df = read_csv_file(_buf(raw))
-    assert df["Price"].tolist() == [1.0, 3.0]  # Open comes first in the file
+    s = read_csv_file(_buf(raw))
+    assert s.prices.tolist() == [1.0, 3.0]  # Open comes first in the file
 
 
 def test_fallback_non_date_column():
     raw = "Date,Whatever\n2024-01-01,5\n2024-01-02,6\n"
-    df = read_csv_file(_buf(raw))
-    assert df["Price"].tolist() == [5.0, 6.0]
+    s = read_csv_file(_buf(raw))
+    assert s.prices.tolist() == [5.0, 6.0]
 
 
 def test_missing_date_column_raises():
@@ -115,20 +116,18 @@ def test_moments_match_pandas(two_asset):
 
 
 def test_combine_inner_join():
-    idx1 = pd.date_range("2024-01-01", periods=10, freq="D")
-    idx2 = pd.date_range("2024-01-03", periods=10, freq="D")
-    a = pd.DataFrame({"Date": idx1, "Price": np.arange(10.0) + 1})
-    b = pd.DataFrame({"Date": idx2, "Price": np.arange(10.0) + 100})
-    joined = combine_prices([("A", a), ("B", b)], "D")
-    assert joined.index[0] == pd.Timestamp("2024-01-03")
+    idx1 = np.arange("2024-01-01", "2024-01-11", dtype="datetime64[D]")
+    a = PriceSeries(idx1.astype("datetime64[s]"), np.arange(10.0) + 1)
+    b = PriceSeries((idx1 + 2).astype("datetime64[s]"), np.arange(10.0) + 100)
+    dates, joined = combine_prices([("A", a), ("B", b)], "D")
+    assert dates[0] == np.datetime64("2024-01-03")
     assert joined.shape == (8, 2)
 
 
 def test_returns_conventions():
-    idx = pd.date_range("2024-01-01", periods=4, freq="D")
-    prices = pd.DataFrame({"X": [100.0, 110.0, 99.0, 99.0]}, index=idx)
+    prices = np.array([[100.0], [110.0], [99.0], [99.0]])
     sr = stats_returns(prices)
     pr = portfolio_returns(prices)
     assert len(sr) == 3 and len(pr) == 4
-    assert pr.iloc[0, 0] == 0.0
-    np.testing.assert_allclose(sr["X"].to_numpy(), [0.1, -0.1, 0.0], atol=1e-12)
+    assert pr[0, 0] == 0.0
+    np.testing.assert_allclose(sr[:, 0], [0.1, -0.1, 0.0], atol=1e-12)

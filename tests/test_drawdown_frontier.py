@@ -106,12 +106,12 @@ def test_multi_dd_bf16_scoring_fidelity():
     assert np.abs(np.asarray(f32[1]).mean(1) - np.asarray(b16[1]).mean(1)).max() < 2e-3
 
 
-def test_frontier_bf16_screen_exact_rescore():
+def test_frontier_bf16_screen_exact_rescore(interpret_kernels):
     """bf16 screening + f32 top-candidate rescore finds the same optimum as a
     full-f32 search, with bit-exact reported metrics at the optimum (same
     seed → same paths; the rescore re-derives them at f32)."""
     kw = dict(dd_budget=0.35, n_candidates=64, n_paths=2048, n_steps=26,
-              use_pallas=True, interpret=True)
+              use_pallas=True)
     r32 = drawdown_frontier_search(jax.random.key(2), PARAMS, **kw)
     rb16 = drawdown_frontier_search(jax.random.key(2), PARAMS,
                                     score_dtype="bfloat16", **kw)
@@ -121,12 +121,12 @@ def test_frontier_bf16_screen_exact_rescore():
     assert rb16.dd_p95[rb16.opt_idx] == r32.dd_p95[r32.opt_idx]
 
 
-def test_frontier_auto_tier_default_bitequal_vs_f32():
+def test_frontier_auto_tier_default_bitequal_vs_f32(interpret_kernels):
     """Round-4 default: score_dtype="auto" resolves to the bf16 screen +
     exact rescore on big buy-and-hold kernel workloads, and the reported
     optimum is BIT-EQUAL to a full-f32 search (identity + metrics)."""
     kw = dict(dd_budget=0.35, n_candidates=64, n_paths=2048, n_steps=26,
-              use_pallas=True, interpret=True)
+              use_pallas=True)
     r32 = drawdown_frontier_search(jax.random.key(2), PARAMS,
                                    score_dtype="float32", **kw)
     # auto_bf16_min_work=0 forces the auto heuristic ON at test scale
@@ -177,11 +177,11 @@ def test_multi_dd_rebalance_law_vs_lax():
     assert (dd <= 1e-6).all() and (dd >= -1).all()
 
 
-def test_frontier_rebalance_mode():
+def test_frontier_rebalance_mode(interpret_kernels):
     """Rebalanced search runs end-to-end on the kernel path and differs from
     buy-and-hold scoring (single-asset candidates aside, the metrics move)."""
     kw = dict(dd_budget=0.35, n_candidates=64, n_paths=2048, n_steps=26,
-              use_pallas=True, interpret=True)
+              use_pallas=True)
     rb = drawdown_frontier_search(jax.random.key(2), PARAMS, rebalance=True, **kw)
     bh = drawdown_frontier_search(jax.random.key(2), PARAMS, **kw)
     assert rb.opt_idx >= 0
@@ -204,21 +204,11 @@ def test_multi_dd_tf32_scoring_fidelity():
 
 
 def test_multi_dd_flag_matrix_composes():
-    """Every score_dtype tier composes with prefetch and rebalance and stays
-    within its tier's documented error of the plain-f32 result.
-
-    Suite-diet note: the full 2x2x3 matrix is 14 interpret-mode compiles;
-    each tier is instead exercised once with prefetch ON and once OFF
-    across the two rebalance modes (every pairwise flag combination still
-    appears)."""
+    """Every score_dtype tier composes with rebalance and stays within its
+    tier's documented error of the plain-f32 result."""
     w = np.asarray(jax.random.dirichlet(jax.random.key(5), jnp.ones(A), (8,)),
                    np.float32)
-    for rebalance, cases in (
-        (False, (("float32", True), ("tensorfloat32", False),
-                 ("bfloat16", True))),
-        (True, (("float32", False), ("tensorfloat32", True),
-                ("bfloat16", False))),
-    ):
+    for rebalance in (False, True):
         # bf16's per-path MAX error compounds in rebalance mode (~2e-3
         # relative per step as a random walk; the max over 8k samples sits
         # several sigma out) — the frontier's guarantee is unaffected since
@@ -228,10 +218,10 @@ def test_multi_dd_flag_matrix_composes():
                if rebalance else 1.5e-2}
         base = gbm_multi_portfolio_dd(11, MEAN, CHOL, w, 1024, 13,
                                       rebalance=rebalance, **KW)
-        for sd, prefetch in cases:
+        for sd in ("float32", "tensorfloat32", "bfloat16"):
             atol = tol[sd]
             term, dd = gbm_multi_portfolio_dd(
-                11, MEAN, CHOL, w, 1024, 13, prefetch=prefetch,
+                11, MEAN, CHOL, w, 1024, 13,
                 score_dtype=sd, rebalance=rebalance, **KW)
             if atol == 0.0:
                 assert (np.asarray(term) == np.asarray(base[0])).all()
@@ -240,34 +230,7 @@ def test_multi_dd_flag_matrix_composes():
                 assert np.abs(np.asarray(dd) - np.asarray(base[1])).max() < atol
 
 
-def test_multi_dd_unroll_same_stream():
-    """unroll=1/2/4 consume the identical draw sequence in every scoring mode
-    (main loop + tail pairs + odd step); outputs match to fusion tolerance.
-    Pins the unroll=2 production default against the unroll=1 reference.
-
-    Suite-diet note: each (steps, rebalance, unroll) tuple is a separate
-    interpret-mode compile. steps=9 covers the odd tail, steps=10 the
-    even tail-pair (for both u=2 and u=4); the exact-multiple case
-    (steps=8) and u=4 get one pinned combination each."""
-    w = np.asarray(jax.random.dirichlet(jax.random.key(8), jnp.ones(A), (8,)),
-                   np.float32)
-    cases = [  # (steps, rebalance, unrolls-vs-1)
-        (9, False, (2,)), (9, True, (2,)),
-        (10, False, (2,)), (10, True, (4,)),
-        (8, True, (2, 4)),
-    ]
-    for steps, rebalance, unrolls in cases:
-        outs = [gbm_multi_portfolio_dd(13, MEAN, CHOL, w, 512, steps,
-                                       rebalance=rebalance, unroll=u, **KW)
-                for u in (1, *unrolls)]
-        for term, dd in outs[1:]:
-            np.testing.assert_allclose(np.asarray(term),
-                                       np.asarray(outs[0][0]), atol=2e-6)
-            np.testing.assert_allclose(np.asarray(dd),
-                                       np.asarray(outs[0][1]), atol=2e-6)
-
-
-# ---- model-family frontier (round 3): GARCH + bootstrap --------------------
+# ---- model-family frontier (round 3): GARCH --------------------
 
 
 def _family_history():
@@ -282,8 +245,7 @@ def test_family_frontier_garch_sanity_and_chunk_invariance():
     from mcport.models.garch_mc import estimate_ccc_garch
 
     gp = estimate_ccc_garch(_family_history())
-    kw = dict(dd_budget=0.30, n_candidates=96, n_paths=1024, n_steps=13,
-              use_pallas=False)
+    kw = dict(dd_budget=0.30, n_candidates=96, n_paths=1024, n_steps=13)
     r = family_drawdown_frontier_search(jax.random.key(0), "garch", gp, **kw)
     assert r.opt_idx >= 0
     assert r.dd_p95[r.opt_idx] >= -0.30
@@ -301,26 +263,6 @@ def test_family_frontier_garch_sanity_and_chunk_invariance():
     assert r_wide.ret[r_wide.opt_idx] >= r.ret[r.opt_idx]
 
 
-def test_family_frontier_bootstrap_kernel_and_lax():
-    import jax
-
-    from mcport.engine.drawdown_frontier import family_drawdown_frontier_search
-
-    h = _family_history()
-    kw = dict(dd_budget=0.35, n_candidates=64, n_paths=512, n_steps=13)
-    r_lax = family_drawdown_frontier_search(jax.random.key(1), "bootstrap", h,
-                                            use_pallas=False, **kw)
-    r_ker = family_drawdown_frontier_search(jax.random.key(1), "bootstrap", h,
-                                            use_pallas=True, interpret=True,
-                                            **kw)
-    # same law, independent streams: both find feasible optima with
-    # comparable return levels
-    assert r_lax.opt_idx >= 0 and r_ker.opt_idx >= 0
-    assert abs(r_lax.ret[r_lax.opt_idx] - r_ker.ret[r_ker.opt_idx]) < 0.2
-    # same candidate sets (same key → same sampler stream)
-    np.testing.assert_array_equal(r_lax.weights, r_ker.weights)
-
-
 def test_family_frontier_hedged_and_errors():
     import jax
 
@@ -336,8 +278,7 @@ def test_family_frontier_hedged_and_errors():
         {i: Legs.from_rows([(LegType.BUY_ASSET, 0.0, 0.0, 1.0),
                             (LegType.BUY_PUT, float(s0[i]) * 0.98, 0.0, 1.0)])
          for i in range(4)}, names)
-    kw = dict(dd_budget=0.25, n_candidates=64, n_paths=512, n_steps=13,
-              use_pallas=False)
+    kw = dict(dd_budget=0.25, n_candidates=64, n_paths=512, n_steps=13)
     base = family_drawdown_frontier_search(jax.random.key(2), "garch", gp, **kw)
     hedged = family_drawdown_frontier_search(jax.random.key(2), "garch", gp,
                                              hedge=prot, s0=s0, **kw)
@@ -350,7 +291,7 @@ def test_family_frontier_hedged_and_errors():
                                         hedge=prot, **kw)
 
 
-def test_poly_fast_path_tier_and_stream_consistent_rescore():
+def test_poly_fast_path_tier_and_stream_consistent_rescore(interpret_kernels):
     """bm="poly_fast" (round-4 screening tier) through the PATH tier.
 
     Interpret mode feeds the SAME Threefry uniforms to every bm variant, so
@@ -376,7 +317,7 @@ def test_poly_fast_path_tier_and_stream_consistent_rescore():
                                atol=1e-5)
 
     kw = dict(dd_budget=0.35, n_candidates=64, n_paths=1024, n_steps=13,
-              use_pallas=True, interpret=True, bm="poly_fast")
+              use_pallas=True, bm="poly_fast")
     rf32 = drawdown_frontier_search(jax.random.key(2), PARAMS,
                                     score_dtype="float32", **kw)
     rb16 = drawdown_frontier_search(jax.random.key(2), PARAMS,

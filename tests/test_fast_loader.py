@@ -1,14 +1,15 @@
-"""Native C++ CSV fast path: builds, matches the pandas loader exactly, and is faster."""
+"""Native C++ CSV fast path: builds, matches the csv loader and the reference's
+pandas loader exactly, and is faster than pandas."""
 
 import time
 
 import numpy as np
-import pandas as pd
 import pytest
 
 from mcport.config import DataConfig
 from mcport.data import read_csv_file
 from mcport.data.fast_loader import build_native, native_available, read_csv_file_native
+from pandas_reference import read_csv_pandas, to_series_arrays
 
 pytestmark = pytest.mark.skipif(
     not build_native(), reason="no C++ toolchain available"
@@ -20,16 +21,16 @@ def test_native_builds():
 
 
 def test_matches_pandas_loader_on_all_fixtures(fixtures_dir):
-    """Dates and prices identical to the pandas loader on every bundled CSV."""
+    """Dates and prices identical to the csv loader and to pandas on every
+    bundled CSV."""
     for p in sorted(fixtures_dir.glob("*.csv")):
-        ref = read_csv_file(p)
         fast = read_csv_file_native(p)
-        assert len(fast) == len(ref), p.name
-        # same set of (date, price) rows; loaders may emit in file order
-        ref_s = ref.sort_values("Date").reset_index(drop=True)
-        fast_s = fast.sort_values("Date").reset_index(drop=True)
-        pd.testing.assert_series_equal(ref_s["Date"], fast_s["Date"], check_names=False)
-        np.testing.assert_allclose(fast_s["Price"], ref_s["Price"], rtol=0, atol=0)
+        ref = read_csv_file(p)
+        pd_dates, pd_prices = to_series_arrays(read_csv_pandas(p))
+        np.testing.assert_array_equal(fast.dates, ref.dates)
+        np.testing.assert_array_equal(fast.prices, ref.prices)
+        np.testing.assert_array_equal(fast.dates, pd_dates)
+        np.testing.assert_array_equal(fast.prices, pd_prices)
 
 
 def test_bug_compat_mode(fixtures_dir):
@@ -44,10 +45,10 @@ def test_bug_compat_mode(fixtures_dir):
 def test_iso_dates(tmp_path):
     p = tmp_path / "iso.csv"
     p.write_text("Date,Close\n2024-01-02,10.5\n2024-01-03,11.25\nbad-row,x\n")
-    df = read_csv_file_native(p)
-    assert len(df) == 2
-    assert df["Price"].tolist() == [10.5, 11.25]
-    assert df["Date"].iloc[0] == pd.Timestamp("2024-01-02")
+    s = read_csv_file_native(p)
+    assert len(s) == 2
+    assert s.prices.tolist() == [10.5, 11.25]
+    assert s.dates[0] == np.datetime64("2024-01-02")
 
 
 def test_native_faster_than_pandas(fixtures_dir, tmp_path):
@@ -64,7 +65,7 @@ def test_native_faster_than_pandas(fixtures_dir, tmp_path):
     fast = read_csv_file_native(big)
     t_native = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ref = read_csv_file(big)
+    ref = read_csv_pandas(big)
     t_pandas = time.perf_counter() - t0
     assert len(fast) == len(ref)
     assert t_native < t_pandas, (t_native, t_pandas)

@@ -74,7 +74,7 @@ def test_sim_frontier_put_protection_improves_cvar():
 def test_streaming_identity_matches_unhedged():
     p = _params()
     kw = dict(n_candidates=4096, n_paths=1024, n_steps=13, cand_block=1024,
-              objective="cvar", tail="exact")
+              objective="cvar")
     base = simulated_weight_search_streaming(jax.random.key(2), p, **kw)
     hedged = simulated_weight_search_streaming(jax.random.key(2), p,
                                                hedge=IDENTITY, **kw)
@@ -286,17 +286,18 @@ def test_hedged_kernel_matches_lax_scorer():
     assert np.abs(np.asarray(d_b) - np.asarray(d_p)).max() < bound
 
 
-def test_hedged_frontier_kernel_path_matches_search_semantics():
-    """drawdown_frontier_search(hedge=..., use_pallas=True, interpret=True)
-    runs the hedged KERNEL path end-to-end (incl. the bf16 rescore loop) and
-    its optimum satisfies the budget with exact f32 metrics."""
+def test_hedged_frontier_kernel_path_matches_search_semantics(interpret_kernels):
+    """drawdown_frontier_search(hedge=..., use_pallas=True) with kernels
+    interpreted runs the hedged KERNEL path end-to-end (incl. the bf16
+    rescore loop) and its optimum satisfies the budget with exact f32
+    metrics."""
     p = _params(s0=[100.0, 50.0, 20.0, 8.0])
     prot = HedgeSpec.build(
         {0: Legs.from_rows([(LegType.BUY_ASSET, 0.0, 0.0, 1.0),
                             (LegType.BUY_PUT, 97.0, 0.5, 1.0)])}, NAMES)
     r = drawdown_frontier_search(
         jax.random.key(6), p, dd_budget=0.4, n_candidates=64, n_paths=512,
-        n_steps=13, use_pallas=True, interpret=True, hedge=prot,
+        n_steps=13, use_pallas=True, hedge=prot,
         score_dtype="bfloat16", rescore_top=8)
     assert r.opt_idx >= 0
     assert r.dd_p95[r.opt_idx] >= -0.4
@@ -393,9 +394,9 @@ def test_sharded_frontier_2d_hedged_identity_bit_equal(eight_devices):
 
 
 def test_hedged_kernel_unroll_same_stream():
-    """Hedged settlement mode consumes the identical draw stream at
-    unroll=1/2/4 (pins the unroll=2 production default): even/odd step
-    counts, protective-put legs."""
+    """Hedged settlement mode consumes the identical draw stream in the
+    kernel and in its plain-jnp twin: even/odd step counts (the odd count
+    takes the paired step loop's single-draw tail), protective-put legs."""
     from mcport.ops.pallas_multi_dd import gbm_multi_portfolio_dd
 
     p = _params(s0=[100.0, 50.0, 20.0, 8.0])
@@ -408,18 +409,13 @@ def test_hedged_kernel_unroll_same_stream():
                             (LegType.BUY_PUT, float(p.s0[i]) * 0.98, 0.0, 1.0)])
          for i in range(A)}, NAMES)
     args = _spec_args(prot, p.s0)
-    kw = dict(interpret=True, block=128)
-    # suite diet: one unroll variant per steps case (odd tails differ
-    # between u=2 and u=4; 9 pins u=2's odd tail, 13 pins u=4's)
-    for steps, unrolls in ((9, (2,)), (13, (4,))):
-        outs = [gbm_multi_portfolio_dd(17, mean, chol, w, 256, steps,
-                                       hedge_args=args, unroll=u, **kw)
-                for u in (1, *unrolls)]
-        for term, dd in outs[1:]:
-            np.testing.assert_allclose(np.asarray(term),
-                                       np.asarray(outs[0][0]), atol=2e-6)
-            np.testing.assert_allclose(np.asarray(dd),
-                                       np.asarray(outs[0][1]), atol=2e-6)
+    for steps in (9, 12):
+        kern = gbm_multi_portfolio_dd(17, mean, chol, w, 256, steps,
+                                      hedge_args=args, interpret=True, block=128)
+        twin = gbm_multi_portfolio_dd(17, mean, chol, w, 256, steps,
+                                      hedge_args=args, reference=True, block=128)
+        for k, t in zip(kern, twin):
+            np.testing.assert_allclose(np.asarray(k), np.asarray(t), atol=2e-6)
 
 
 def test_api_hedged_tail_risk_dcc_jump(weekly_data):

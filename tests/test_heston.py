@@ -1,5 +1,5 @@
-"""Heston stochastic-volatility family: estimation, lax reference, Pallas
-kernel (interpret tier), and engine/API wiring.
+"""Heston stochastic-volatility family: estimation, lax reference, and
+engine/API wiring.
 
 The seventh model family (see mcport/models/heston.py): per-asset CIR
 variance with leverage, cross-asset correlated return shocks, full-truncation
@@ -20,10 +20,6 @@ from mcport.models.heston import (
     heston_terminal_returns,
     simulate_heston_returns,
 )
-from mcport.ops.pallas_heston import (
-    pallas_heston_path_stats,
-    pallas_heston_terminal_returns,
-)
 from mcport.options import HedgeSpec, LegType, Legs
 
 A = 2
@@ -39,7 +35,6 @@ PARAMS = HestonParams(
     s0=np.array([100.0, 50.0]),
 )
 W = np.array([[0.5, 0.5], [0.2, 0.8], [1.0, 0.0]], np.float32)
-KW = dict(interpret=True, block=128)
 IDENTITY = HedgeSpec.build({}, NAMES)
 IDENT_ARGS = (np.ones(A, np.float32), *IDENTITY.arrays)
 
@@ -194,87 +189,20 @@ def test_lax_terminal_equals_compounded_paths():
                                rtol=2e-5, atol=2e-6)
 
 
-# ---- Pallas kernel ----------------------------------------------------------
-
-
-def test_kernel_zero_variance_closed_form():
-    p = _frozen_vol([0.01, -0.005], [0.0, 0.0])
-    out = np.asarray(pallas_heston_terminal_returns(1, p, 64, 6, **KW))
-    np.testing.assert_allclose(out[:, 0], np.exp(0.06) - 1, rtol=1e-5)
-    np.testing.assert_allclose(out[:, 1], np.exp(-0.03) - 1, rtol=1e-5)
-
-
-def test_kernel_matches_lax_law():
-    n, steps = 20_000, 32
-    got = np.asarray(pallas_heston_terminal_returns(3, PARAMS, n, steps, **KW),
-                     np.float64)
-    ref = np.asarray(heston_terminal_returns(jax.random.key(3), PARAMS, n,
-                                             steps), np.float64)
-    se = ref.std(0, ddof=1) / np.sqrt(n)
-    np.testing.assert_allclose(got.mean(0), ref.mean(0),
-                               atol=float(6 * se.max()))
-    np.testing.assert_allclose(got.std(0), ref.std(0), rtol=0.06)
-    c_got = np.corrcoef(got, rowvar=False)[0, 1]
-    c_ref = np.corrcoef(ref, rowvar=False)[0, 1]
-    assert abs(c_got - c_ref) < 0.05
-
-
-def test_kernel_dd_matches_lax_law():
-    n, steps = 8_192, 13
-    tk, dk = pallas_heston_path_stats(3, PARAMS, W, n, steps, **KW)
-    tl, dl = heston_path_stats(jax.random.key(3), PARAMS, W, n, steps)
-    tk, dk, tl, dl = (np.asarray(x, np.float64) for x in (tk, dk, tl, dl))
-    se = tl.std(1, ddof=1) / np.sqrt(n)
-    assert np.all(np.abs(tk.mean(1) - tl.mean(1)) < 6 * se)
-    assert np.all(np.abs(tk.std(1) / tl.std(1) - 1) < 0.1)
-    for q in (0.05, 0.5):
-        np.testing.assert_allclose(np.quantile(dk, q, axis=1),
-                                   np.quantile(dl, q, axis=1), atol=0.03)
-
-
-def test_kernel_hedged_identity_and_put_dominance():
-    tk, dk = pallas_heston_path_stats(5, PARAMS, W, 512, 13, **KW)
-    th, dh = pallas_heston_path_stats(5, PARAMS, W, 512, 13, **KW,
-                                      hedge_args=IDENT_ARGS)
+def test_lax_hedged_identity_and_put_dominance():
+    tk, dk = heston_path_stats(jax.random.key(5), PARAMS, W, 512, 13)
+    th, dh = heston_path_stats(jax.random.key(5), PARAMS, W, 512, 13,
+                               hedge_args=IDENT_ARGS)
     np.testing.assert_allclose(np.asarray(th), np.asarray(tk), atol=3e-6)
     np.testing.assert_allclose(np.asarray(dh), np.asarray(dk), atol=3e-6)
     s0 = np.array([100.0, 50.0], np.float32)
     prot = _protective_put(s0)
-    tr, dr = pallas_heston_path_stats(7, PARAMS, W, 512, 13, **KW,
-                                      hedge_args=(s0, *IDENTITY.arrays))
-    tp, dp = pallas_heston_path_stats(7, PARAMS, W, 512, 13, **KW,
-                                      hedge_args=(s0, *prot.arrays))
+    tr, dr = heston_path_stats(jax.random.key(7), PARAMS, W, 512, 13,
+                               hedge_args=(s0, *IDENTITY.arrays))
+    tp, dp = heston_path_stats(jax.random.key(7), PARAMS, W, 512, 13,
+                               hedge_args=(s0, *prot.arrays))
     assert (np.asarray(tp) >= np.asarray(tr) - 1e-6).all()
     assert np.asarray(dp).mean() >= np.asarray(dr).mean()
-
-
-def test_kernel_deterministic_unroll_stream_identity_odd_steps():
-    for steps in (7, 13):
-        outs = [pallas_heston_path_stats(9, PARAMS, W, 256, steps, **KW,
-                                         unroll=u) for u in (1, 2, 4)]
-        for t, d in outs[1:]:
-            np.testing.assert_allclose(np.asarray(t), np.asarray(outs[0][0]),
-                                       atol=2e-6)
-            np.testing.assert_allclose(np.asarray(d), np.asarray(outs[0][1]),
-                                       atol=2e-6)
-        t2, _ = pallas_heston_path_stats(9, PARAMS, W, 256, steps, **KW,
-                                         unroll=2)
-        np.testing.assert_array_equal(np.asarray(t2), np.asarray(outs[1][0]))
-    a = np.asarray(pallas_heston_terminal_returns(5, PARAMS, 300, 7, **KW))
-    b = np.asarray(pallas_heston_terminal_returns(5, PARAMS, 300, 7, **KW))
-    np.testing.assert_array_equal(a, b)
-    assert np.isfinite(a).all()
-
-
-def test_kernel_candidate_chunking():
-    w_many = np.asarray(
-        jax.random.dirichlet(jax.random.key(0), jnp.ones(A), (300,)),
-        np.float32)
-    t, d = pallas_heston_path_stats(11, PARAMS, w_many, 128, 5, **KW)
-    assert t.shape == (300, 128) and d.shape == (300, 128)
-    w_dup = np.vstack([w_many[:260], w_many[:1]])
-    t2, _ = pallas_heston_path_stats(11, PARAMS, w_dup, 128, 5, **KW)
-    np.testing.assert_array_equal(np.asarray(t2[-1]), np.asarray(t2[0]))
 
 
 # ---- engine / API / frontier wiring (the full family matrix) ----------------
@@ -322,11 +250,11 @@ def test_engine_resumable_and_family_frontier(tmp_path):
 
     fr = family_drawdown_frontier_search(
         jax.random.key(0), "heston", PARAMS, dd_budget=0.8, n_candidates=64,
-        n_paths=512, n_steps=8, use_pallas=False)
+        n_paths=512, n_steps=8)
     assert fr.opt_idx >= 0
     fr2 = family_drawdown_frontier_search(
         jax.random.key(0), "heston", PARAMS, dd_budget=0.8, n_candidates=64,
-        n_paths=512, n_steps=8, use_pallas=False, w_block=32)
+        n_paths=512, n_steps=8, w_block=32)
     np.testing.assert_array_equal(fr.ret, fr2.ret)
 
 

@@ -103,7 +103,7 @@ def test_recovery_driver_survives_transient_aborts(tmp_path, monkeypatch):
     def flaky(*args, **kwargs):
         calls["n"] += 1
         if calls["n"] in (2, 4):  # fail the 2nd and 4th segments
-            raise jax.errors.JaxRuntimeError("ABORTED: TPU backend error (Aborted).")
+            raise jax.errors.JaxRuntimeError("ABORTED: device backend error (Aborted).")
         return real(*args, **kwargs)
 
     monkeypatch.setattr(eng, "run_resumable_mc", flaky)
@@ -123,7 +123,7 @@ def test_recovery_driver_gives_up_on_permanent_failure(tmp_path, monkeypatch):
     import mcport.engine.mc_engine as eng
 
     def always_fail(*args, **kwargs):
-        raise jax.errors.JaxRuntimeError("ABORTED: TPU backend error (Aborted).")
+        raise jax.errors.JaxRuntimeError("ABORTED: device backend error (Aborted).")
 
     monkeypatch.setattr(eng, "run_resumable_mc", always_fail)
     with pytest.raises(jax.errors.JaxRuntimeError):

@@ -7,7 +7,7 @@ Neumaier folds + drift shift) must hold 1e-6 *at scale*, not just at the 8k-path
 sizes the engine tests use. The oracle is exact float64 accumulation of the SAME
 float32 samples, so the only error under test is accumulation error.
 
-Runs the accumulators in explicit float32 (the TPU compute dtype) even though the
+Runs the accumulators in explicit float32 (the device compute dtype) even though the
 test session enables x64.
 """
 

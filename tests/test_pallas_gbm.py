@@ -1,8 +1,9 @@
 """Pallas GBM kernels vs the lax reference engine (interpret mode on CPU).
 
-Distribution-level parity: the kernels use the on-core PRNG (different stream from
-Threefry), so tests compare moments/quantiles against the lax reference and exact
-analytics, not draw-for-draw values (SURVEY.md §4 "kernel tests").
+Distribution-level parity: the kernels draw their own in-kernel Threefry
+stream (a different stream from jax.random), so tests compare moments and
+quantiles against the lax reference and exact analytics; draw-for-draw
+parity with the plain-jnp twins is in tests/test_kernel_twins.py.
 """
 
 import jax
@@ -112,8 +113,7 @@ def test_path_stats_zero_vol_drawdown():
 
 
 def test_wide_universe_padding():
-    """A > 16 pads to the next sublane multiple — 64 assets, no layout bugs
-    (also validated compiled on the real chip at A=64/128: stds within 0.4%)."""
+    """A > 16 pads to the next power of two — 64 assets, no layout bugs."""
     a = 64
     rng = np.random.default_rng(a)
     corr = 0.4 * np.eye(a) + 0.6
@@ -128,8 +128,8 @@ def test_wide_universe_padding():
 # ---- polynomial Box-Muller variants (roofline work, r2) -------------------------
 
 def test_poly_helpers_match_reference_math():
-    """_ln_poly/_sincos_poly/_exp_poly/_sqrt_poly vs numpy over their domains."""
-    from mcport.ops.pallas_gbm import _exp_poly, _ln_poly, _sincos_poly, _sqrt_poly
+    """_ln_poly/_sincos_poly/_exp_poly vs numpy over their domains."""
+    from mcport.ops.pallas_gbm import _exp_poly, _ln_poly, _sincos_poly
 
     rng = np.random.default_rng(0)
     u = rng.uniform(2**-23, 1.0, 100_000).astype(np.float32)
@@ -144,42 +144,32 @@ def test_poly_helpers_match_reference_math():
     rel = np.abs(np.asarray(_exp_poly(jnp.asarray(x))).astype(np.float64)
                  / np.exp(x.astype(np.float64)) - 1)
     assert rel.max() < 5e-6
-    y = rng.uniform(1e-7, 32.0, 100_000).astype(np.float32)
-    rel = np.abs(np.asarray(_sqrt_poly(jnp.asarray(y))).astype(np.float64)
-                 / np.sqrt(y.astype(np.float64)) - 1)
-    assert rel.max() < 2e-6
 
 
 def test_poly_boxmuller_matches_exact_per_draw():
     """Same uniforms through poly and exact Box-Muller → same normals to ~2e-6
-    absolute (the adopted default changes throughput, not the distribution)."""
-    from mcport.ops.pallas_gbm import _BM_VARIANTS
+    absolute (the polynomial form changes throughput, not the distribution)."""
+    from mcport.ops.pallas_gbm import _boxmuller, _boxmuller_poly
 
     rng = np.random.default_rng(1)
     u1 = rng.uniform(2**-23, 1.0, 200_000).astype(np.float32)
     u2 = rng.uniform(0, 1, 200_000).astype(np.float32)
-    z1e, z2e = _BM_VARIANTS["exact"](jnp.asarray(u1), jnp.asarray(u2))
-    # sqrtsin's sin = sqrt(1-c^2) loses absolute accuracy ~eps/(2 sin) where
-    # sin ≈ 0 (z2 itself ≈ 0 there) — bounded by ~1e-3 and distribution-neutral
-    tol2 = {"poly": 3e-6, "polyall": 3e-6, "sqrtsin": 2e-3}
-    for name in ("poly", "polyall", "sqrtsin"):
-        z1, z2 = _BM_VARIANTS[name](jnp.asarray(u1), jnp.asarray(u2))
-        assert float(jnp.max(jnp.abs(z1 - z1e))) < 3e-6, name
-        assert float(jnp.max(jnp.abs(z2 - z2e))) < tol2[name], name
+    z1e, z2e = _boxmuller(jnp.asarray(u1), jnp.asarray(u2))
+    z1, z2 = _boxmuller_poly(jnp.asarray(u1), jnp.asarray(u2))
+    assert float(jnp.max(jnp.abs(z1 - z1e))) < 3e-6
+    assert float(jnp.max(jnp.abs(z2 - z2e))) < 3e-6
 
 
 def test_terminal_kernel_variants_same_law_interpret():
-    """All bm variants produce the same distribution through the kernel
-    (interpret mode shares the Threefry bit source, so draws are comparable)."""
+    """Both bm tiers read the same uniforms, so their noise sums differ only
+    by the screening fits' draw error (summed over 8 steps)."""
     from mcport.ops.pallas_gbm import gbm_terminal_noise
 
     chol = np.diag([0.02, 0.03]).astype(np.float32)
-    base = np.asarray(gbm_terminal_noise(3, chol, 2048, 8, interpret=True, bm="exact"))
     poly = np.asarray(gbm_terminal_noise(3, chol, 2048, 8, interpret=True, bm="poly"))
-    np.testing.assert_allclose(poly, base, atol=2e-5)
     fast = np.asarray(gbm_terminal_noise(3, chol, 2048, 8, interpret=True,
                                          bm="poly_fast"))
-    np.testing.assert_allclose(fast, base, atol=3e-4)
+    np.testing.assert_allclose(fast, poly, atol=3e-4)
 
 
 def test_poly_fast_fidelity_bound():
@@ -190,7 +180,7 @@ def test_poly_fast_fidelity_bound():
     error (2.2e-5 cos / 2.5e-6 sin) scaled UP by r. Worst case over the full
     representable uniform range: ~1.5e-4 at the 5.65σ radius (u1 = 2^-23) —
     tiny relative to MC noise at any screening path count."""
-    from mcport.ops.pallas_gbm import _BM_VARIANTS
+    from mcport.ops.pallas_gbm import _boxmuller, _boxmuller_poly_fast
 
     rng = np.random.default_rng(1)
     # include extreme corners of both uniforms: deep tail and r→0
@@ -199,8 +189,8 @@ def test_poly_fast_fidelity_bound():
         np.array([2**-23, 1e-6, 0.9999, 0.999999, 1.0 - 2**-24]),
     ]).astype(np.float32)
     u2 = rng.uniform(0, 1, u1.shape[0]).astype(np.float32)
-    z1e, z2e = _BM_VARIANTS["exact"](jnp.asarray(u1), jnp.asarray(u2))
-    z1f, z2f = _BM_VARIANTS["poly_fast"](jnp.asarray(u1), jnp.asarray(u2))
+    z1e, z2e = _boxmuller(jnp.asarray(u1), jnp.asarray(u2))
+    z1f, z2f = _boxmuller_poly_fast(jnp.asarray(u1), jnp.asarray(u2))
     d1 = np.abs(np.asarray(z1f) - np.asarray(z1e))
     d2 = np.abs(np.asarray(z2f) - np.asarray(z2e))
     r = np.sqrt(-2.0 * np.log(u1.astype(np.float64)))
@@ -237,87 +227,9 @@ def test_t_kernel_law_parity_vs_lax_t():
     assert abs(np.mean(zk**4) - np.mean(zl**4)) < 0.6
 
 
-def test_prefetch_bit_identical():
-    """Draw-ahead pipelining (prefetch=True) must not change a single bit:
-    same draw order, odd tail reuses the carried pair (paired_step_loop)."""
-    from mcport.models.garch_mc import CCCGarchParams
-    from mcport.ops.pallas_garch import pallas_garch_terminal_returns
-    from mcport.ops.pallas_gbm import gbm_path_stats
-    from mcport.ops.pallas_multi_dd import gbm_multi_portfolio_dd
-
-    rng = np.random.default_rng(0)
-    a = 5
-    corr = (0.5 * np.eye(a) + 0.5).astype(np.float32)
-    chol = np.linalg.cholesky(4e-4 * corr).astype(np.float32)
-    mean = rng.normal(1e-3, 5e-4, a).astype(np.float32)
-    w = rng.dirichlet(np.ones(a)).astype(np.float32)
-    cand = rng.dirichlet(np.ones(a), size=16).astype(np.float32)
-    garch = CCCGarchParams(
-        mu=np.full(a, 5e-4, np.float32),
-        omega=np.full(a, 1e-5, np.float32),
-        alpha=np.full(a, 0.08, np.float32),
-        beta=np.full(a, 0.9, np.float32),
-        corr_chol=np.linalg.cholesky(corr).astype(np.float32),
-        sigma2_0=np.full(a, 5e-4, np.float32),
-        eps2_0=np.full(a, 5e-4, np.float32),
-    )
-    # suite diet: steps=7 exercises the odd-tail carried pair in all three
-    # kernels; the even case only needs one kernel to pin the loop shape
-    for steps in (7, 8):
-        base = gbm_path_stats(jnp.int32(3), mean, chol, w, 2048, steps,
-                              interpret=True, prefetch=False)
-        pipe = gbm_path_stats(jnp.int32(3), mean, chol, w, 2048, steps,
-                              interpret=True, prefetch=True)
-        for x, y in zip(base, pipe):
-            assert (np.asarray(x) == np.asarray(y)).all()
-    base = gbm_multi_portfolio_dd(jnp.int32(3), mean, chol, cand, 2048,
-                                  7, interpret=True, prefetch=False)
-    pipe = gbm_multi_portfolio_dd(jnp.int32(3), mean, chol, cand, 2048,
-                                  7, interpret=True, prefetch=True)
-    for x, y in zip(base, pipe):
-        assert (np.asarray(x) == np.asarray(y)).all()
-    base = pallas_garch_terminal_returns(jnp.int32(3), garch, 2048, 7,
-                                         interpret=True, prefetch=False)
-    pipe = pallas_garch_terminal_returns(jnp.int32(3), garch, 2048, 7,
-                                         interpret=True, prefetch=True)
-    assert (np.asarray(base) == np.asarray(pipe)).all()
-
-
-def test_correlate_split_semantics():
-    """The "split" correlate mode: 3-term bf16 split reconstructs L exactly
-    (to f32 rounding), and the kernel law survives z-quantization (variance
-    ratio within MC error of 1)."""
-    from mcport.ops import pallas_gbm
-
-    rng = np.random.default_rng(0)
-    a = 5
-    chol = np.linalg.cholesky(4e-4 * (0.5 * np.eye(a) + 0.5)).astype(np.float32)
-    l1 = chol.astype(jnp.bfloat16).astype(np.float32)
-    r = chol - l1
-    l2 = r.astype(jnp.bfloat16).astype(np.float32)
-    l3 = (r - l2).astype(jnp.bfloat16).astype(np.float32)
-    np.testing.assert_allclose(l1 + l2 + l3, chol, rtol=0, atol=1e-9)
-
-    mean = np.zeros(a, np.float32)
-    w = np.full(a, 0.2, np.float32)
-    old = pallas_gbm.CORRELATE_PRECISION
-    try:
-        pallas_gbm.CORRELATE_PRECISION = "split"
-        pallas_gbm.gbm_path_stats.clear_cache()
-        term, _, _ = pallas_gbm.gbm_path_stats(jnp.int32(3), mean, chol, w,
-                                               16_384, 8, interpret=True)
-    finally:
-        pallas_gbm.CORRELATE_PRECISION = old
-        pallas_gbm.gbm_path_stats.clear_cache()
-    cov = np.cov(np.asarray(term), rowvar=False, ddof=1) / 8
-    want = (chol @ chol.T).astype(np.float64)
-    # MC error at 16k paths ~ 1/sqrt(16k) ~ 0.8%; quantization bias is 3e-6
-    np.testing.assert_allclose(cov, want, rtol=0, atol=6 * 4e-4 / np.sqrt(16_384))
-
-
 def test_asset_axis_padding_guard():
     """Guard for the A = 31/63/127 bench sizes (benchmarks/bench_scaling.py):
-    odd widths one below a sublane multiple must pad cleanly in BOTH kernels
+    odd widths one below a power of two must pad cleanly in BOTH kernels
     — terminal stds match the factor diagonal, and path-stats' portfolio
     terminal equals the weighted exp of its own per-asset terminals (padding
     rows contribute exactly zero through the weight vector)."""
@@ -336,38 +248,3 @@ def test_asset_axis_padding_guard():
         out = np.asarray(pallas_terminal_log_returns(0, mean, chol, 4_000, 8, **KW))
         want_sd = np.sqrt(np.diag(chol @ chol.T) * 8)
         np.testing.assert_allclose(out.std(0), want_sd, rtol=0.15)
-
-
-def test_unroll_same_stream():
-    """unroll=2/4 consume the identical draw sequence (main loop + tail
-    pairs + odd step); outputs match unroll=1 to fusion tolerance for
-    path-stats and GARCH (like prefetch, the loop SHAPE may fuse
-    differently)."""
-    from mcport.models.garch_mc import CCCGarchParams
-    from mcport.ops.pallas_garch import pallas_garch_terminal_returns
-
-    a = 3
-    rng = np.random.default_rng(2)
-    corr = 0.4 * np.eye(a) + 0.6
-    chol = np.linalg.cholesky(0.0004 * corr).astype(np.float32)
-    mean = rng.normal(1e-3, 5e-4, a).astype(np.float32)
-    w = rng.dirichlet(np.ones(a)).astype(np.float32)
-    # suite diet: steps=9 covers the odd tail, 10 the tail pair (u=2 and
-    # u=4), 8 the exact multiple — one unroll variant per steps case
-    for steps, unrolls in ((9, (2,)), (10, (4,)), (8, (2, 4))):
-        outs = [gbm_path_stats(7, mean, chol, w, 256, steps, unroll=u, **KW)
-                for u in (1, *unrolls)]
-        for o in outs[1:]:
-            for x, y in zip(outs[0], o):
-                np.testing.assert_allclose(np.asarray(x), np.asarray(y),
-                                           atol=2e-6)
-    gp = CCCGarchParams(
-        mu=mean.astype(np.float64), omega=np.full(a, 4e-6),
-        alpha=np.full(a, 0.08), beta=np.full(a, 0.9),
-        corr_chol=np.linalg.cholesky(corr), sigma2_0=np.full(a, 1e-4),
-        eps2_0=np.full(a, 1e-4))
-    g1 = pallas_garch_terminal_returns(5, gp, 256, 9, interpret=True, block=128,
-                                       unroll=1)
-    g2 = pallas_garch_terminal_returns(5, gp, 256, 9, interpret=True, block=128,
-                                       unroll=2)
-    np.testing.assert_allclose(np.asarray(g1), np.asarray(g2), atol=2e-6)

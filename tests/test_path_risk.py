@@ -379,14 +379,16 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np
 from mcport.engine.drawdown_frontier import drawdown_frontier_search
 from mcport.models.gbm import GBMParams
+from mcport.ops import dispatch
 
+dispatch._interpret = True     # the kernel path, interpreted on the CPU
 a = 3
 m = np.full(a, 1e-3, np.float32)
 chol = np.linalg.cholesky(4e-4 * (0.5 * np.eye(a) + 0.5)).astype(np.float32)
 r = drawdown_frontier_search(
     jax.random.key(6), GBMParams(s0=np.ones(a), mean_step=m, chol_step=chol),
     dd_budget=0.4, n_candidates=48, n_paths=512, n_steps=6,
-    use_pallas=True, interpret=True, t_df=5.5,
+    use_pallas=True, t_df=5.5,
     score_dtype="bfloat16", rescore_top=4)
 assert r.opt_idx >= 0 and r.dd_p95[r.opt_idx] >= -0.4
 print("T_FRONTIER_OK")
@@ -574,7 +576,7 @@ def test_resumable_path_risk_recovery_survives_aborts(tmp_path, monkeypatch):
     def flaky(*a, **kw):
         calls["n"] += 1
         if calls["n"] in (2, 4):  # abort two mid-run segments
-            raise jax.errors.JaxRuntimeError("ABORTED: TPU backend error")
+            raise jax.errors.JaxRuntimeError("ABORTED: device backend error")
         return real(*a, **kw)
 
     monkeypatch.setattr(pr, "run_resumable_path_risk", flaky)
@@ -586,7 +588,7 @@ def test_resumable_path_risk_recovery_survives_aborts(tmp_path, monkeypatch):
 
     # permanent failure re-raises after max_restarts
     def always_fail(*a, **kw):
-        raise jax.errors.JaxRuntimeError("ABORTED: TPU backend error")
+        raise jax.errors.JaxRuntimeError("ABORTED: device backend error")
 
     monkeypatch.setattr(pr, "run_resumable_path_risk", always_fail)
     with pytest.raises(jax.errors.JaxRuntimeError):

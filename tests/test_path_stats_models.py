@@ -1,5 +1,5 @@
-"""Candidate path-stats (terminal + max drawdown) for the GARCH and bootstrap
-families: lax references and fused Pallas kernels (interpret tier).
+"""Candidate path-stats (terminal + max drawdown) for the GARCH, bootstrap,
+Merton and DCC families (lax forms).
 
 These are the GARCH/bootstrap counterparts of gbm_multi_portfolio_dd: W
 candidate portfolios compound the per-period rebalanced wealth recursion
@@ -20,8 +20,6 @@ import pytest
 
 from mcport.models.bootstrap import bootstrap_path_stats
 from mcport.models.garch_mc import CCCGarchParams, garch_path_stats
-from mcport.ops.pallas_bootstrap import pallas_bootstrap_path_stats
-from mcport.ops.pallas_garch import pallas_garch_path_stats
 from mcport.options import HedgeSpec, LegType, Legs
 
 A = 2
@@ -36,7 +34,6 @@ PARAMS = CCCGarchParams(
     eps2_0=np.array([1e-4, 2e-4]),
 )
 W = np.array([[0.5, 0.5], [0.2, 0.8], [1.0, 0.0]], np.float32)
-KW = dict(interpret=True, block=128)
 IDENTITY = HedgeSpec.build({}, NAMES)
 IDENT_ARGS = (np.ones(A, np.float32), *IDENTITY.arrays)
 
@@ -94,89 +91,6 @@ def test_garch_lax_hedged_identity_matches_plain():
     np.testing.assert_allclose(np.asarray(d1), np.asarray(d0), atol=3e-6)
 
 
-# ---- GARCH Pallas kernel ---------------------------------------------------
-
-
-def test_garch_kernel_zero_vol_closed_form():
-    p = CCCGarchParams(
-        mu=np.array([0.01, -0.005]),
-        omega=np.zeros(A), alpha=np.zeros(A), beta=np.zeros(A),
-        corr_chol=np.eye(A), sigma2_0=np.zeros(A), eps2_0=np.zeros(A),
-    )
-    steps = 6
-    term, dd = pallas_garch_path_stats(1, p, W, 256, steps, **KW)
-    r_port = W @ np.array([0.01, -0.005])
-    want = (1 + r_port) ** steps - 1
-    term, dd = np.asarray(term), np.asarray(dd)
-    np.testing.assert_allclose(
-        term, np.broadcast_to(want[:, None], term.shape), rtol=5e-5)
-    want_dd = np.minimum(want, 0.0)
-    np.testing.assert_allclose(
-        dd, np.broadcast_to(want_dd[:, None], dd.shape), atol=2e-6)
-
-
-def test_garch_kernel_matches_lax_law():
-    n, steps = 8_192, 13
-    tk, dk = pallas_garch_path_stats(3, PARAMS, W, n, steps, **KW)
-    tl, dl = garch_path_stats(jax.random.key(3), PARAMS, W, n, steps)
-    tk, dk, tl, dl = (np.asarray(x, np.float64) for x in (tk, dk, tl, dl))
-    se = tl.std(1, ddof=1) / np.sqrt(n)
-    assert np.all(np.abs(tk.mean(1) - tl.mean(1)) < 6 * se)
-    assert np.all(np.abs(tk.std(1) / tl.std(1) - 1) < 0.1)
-    # drawdown distribution agreement (median + p5)
-    for q in (0.05, 0.5):
-        qk = np.quantile(dk, q, axis=1)
-        ql = np.quantile(dl, q, axis=1)
-        np.testing.assert_allclose(qk, ql, atol=0.03)
-
-
-def test_garch_kernel_hedged_identity_same_stream():
-    tk, dk = pallas_garch_path_stats(5, PARAMS, W, 512, 13, **KW)
-    th, dh = pallas_garch_path_stats(5, PARAMS, W, 512, 13, **KW,
-                                     hedge_args=IDENT_ARGS)
-    np.testing.assert_allclose(np.asarray(th), np.asarray(tk), atol=3e-6)
-    np.testing.assert_allclose(np.asarray(dh), np.asarray(dk), atol=3e-6)
-
-
-def test_garch_kernel_protective_put_dominates_terminal():
-    s0 = np.array([100.0, 50.0])
-    prot = _protective_put(s0)
-    args = (s0.astype(np.float32), *prot.arrays)
-    tr, dr = pallas_garch_path_stats(7, PARAMS, W, 512, 13, **KW,
-                                     hedge_args=(s0, *IDENTITY.arrays))
-    tp, dp = pallas_garch_path_stats(7, PARAMS, W, 512, 13, **KW,
-                                     hedge_args=args)
-    # zero-premium puts dominate per-period returns → terminal wealth
-    # dominates path-by-path (same stream); dd improves in aggregate
-    assert (np.asarray(tp) >= np.asarray(tr) - 1e-6).all()
-    assert np.asarray(dp).mean() >= np.asarray(dr).mean()
-
-
-def test_garch_kernel_deterministic_unroll_stream_identity():
-    outs = [pallas_garch_path_stats(9, PARAMS, W, 256, 13, **KW, unroll=u)
-            for u in (1, 2, 4)]
-    for t, d in outs[1:]:
-        np.testing.assert_allclose(np.asarray(t), np.asarray(outs[0][0]),
-                                   atol=2e-6)
-        np.testing.assert_allclose(np.asarray(d), np.asarray(outs[0][1]),
-                                   atol=2e-6)
-    t2, d2 = pallas_garch_path_stats(9, PARAMS, W, 256, 13, **KW, unroll=2)
-    np.testing.assert_array_equal(np.asarray(t2), np.asarray(outs[1][0]))
-
-
-def test_garch_kernel_candidate_chunking():
-    w_many = np.asarray(
-        jax.random.dirichlet(jax.random.key(0), jnp.ones(A), (300,)),
-        np.float32)
-    t, d = pallas_garch_path_stats(11, PARAMS, w_many, 128, 5, **KW)
-    assert t.shape == (300, 128) and d.shape == (300, 128)
-    # chunk boundary continuity: candidates 0..255 and 256.. share the
-    # per-block stream (same seed), so identical weights give identical rows
-    w_dup = np.vstack([w_many[:260], w_many[:1]])
-    t2, _ = pallas_garch_path_stats(11, PARAMS, w_dup, 128, 5, **KW)
-    np.testing.assert_array_equal(np.asarray(t2[-1]), np.asarray(t2[0]))
-
-
 # ---- bootstrap lax reference ----------------------------------------------
 
 
@@ -213,73 +127,6 @@ def test_bootstrap_lax_same_stream_as_terminal(history):
                                atol=2e-6)
 
 
-# ---- bootstrap Pallas kernel ----------------------------------------------
-
-
-def test_bootstrap_kernel_one_step_rows(history):
-    """One step, always restart: each path's candidate return is w'r for
-    SOME history row (exact one-hot selection + f32 scoring matmul)."""
-    term, dd = pallas_bootstrap_path_stats(3, history, W, 1_024, 1,
-                                           p_restart=1.0, **KW)
-    term = np.asarray(term)
-    cand = history @ W.T                                # (T, Wn)
-    for i in range(W.shape[0]):
-        eq = np.isclose(term[i][:, None], cand[None, :, i],
-                        rtol=1e-5, atol=1e-7)
-        assert eq.any(axis=1).all()
-    np.testing.assert_allclose(np.asarray(dd), np.minimum(term, 0.0),
-                               atol=1e-7)
-
-
-def test_bootstrap_kernel_matches_lax_law(history):
-    n, steps, p = 8_192, 12, 0.25
-    tk, dk = pallas_bootstrap_path_stats(11, history, W, n, steps,
-                                         p_restart=p, **KW)
-    tl, dl = bootstrap_path_stats(jax.random.key(4), history, W, n, steps,
-                                  p_restart=p)
-    tk, dk, tl, dl = (np.asarray(x, np.float64) for x in (tk, dk, tl, dl))
-    se = tl.std(1, ddof=1) / np.sqrt(n)
-    assert np.all(np.abs(tk.mean(1) - tl.mean(1)) < 6 * se)
-    assert np.all(np.abs(tk.std(1) / tl.std(1) - 1) < 0.1)
-    for q in (0.05, 0.5):
-        np.testing.assert_allclose(np.quantile(dk, q, axis=1),
-                                   np.quantile(dl, q, axis=1), atol=0.03)
-
-
-def test_bootstrap_kernel_hedged_identity_same_stream(history):
-    tk, dk = pallas_bootstrap_path_stats(5, history, W, 512, 13, **KW)
-    th, dh = pallas_bootstrap_path_stats(5, history, W, 512, 13, **KW,
-                                         hedge_args=IDENT_ARGS)
-    np.testing.assert_allclose(np.asarray(th), np.asarray(tk), atol=3e-6)
-    np.testing.assert_allclose(np.asarray(dh), np.asarray(dk), atol=3e-6)
-
-
-def test_bootstrap_kernel_protective_put_dominates(history):
-    s0 = np.array([100.0, 50.0], np.float32)
-    prot = _protective_put(s0)
-    tr, dr = pallas_bootstrap_path_stats(7, history, W, 512, 13, **KW,
-                                         hedge_args=(s0, *IDENTITY.arrays))
-    tp, dp = pallas_bootstrap_path_stats(7, history, W, 512, 13, **KW,
-                                         hedge_args=(s0, *prot.arrays))
-    assert (np.asarray(tp) >= np.asarray(tr) - 1e-6).all()
-    assert np.asarray(dp).mean() >= np.asarray(dr).mean()
-
-
-def test_bootstrap_kernel_deterministic_and_chunking(history):
-    a = pallas_bootstrap_path_stats(9, history, W, 256, 7, **KW)
-    b = pallas_bootstrap_path_stats(9, history, W, 256, 7, **KW)
-    np.testing.assert_array_equal(np.asarray(a[0]), np.asarray(b[0]))
-    np.testing.assert_array_equal(np.asarray(a[1]), np.asarray(b[1]))
-    w_many = np.asarray(
-        jax.random.dirichlet(jax.random.key(1), jnp.ones(A), (300,)),
-        np.float32)
-    t, d = pallas_bootstrap_path_stats(9, history, w_many, 128, 5, **KW)
-    assert t.shape == (300, 128) and d.shape == (300, 128)
-    w_dup = np.vstack([w_many[:260], w_many[:1]])
-    t2, _ = pallas_bootstrap_path_stats(9, history, w_dup, 128, 5, **KW)
-    np.testing.assert_array_equal(np.asarray(t2[-1]), np.asarray(t2[0]))
-
-
 # ---- common-jump Merton path stats (late round 3) --------------------------
 
 JUMP_M = np.array([1e-3, 2e-3], np.float32)
@@ -287,44 +134,6 @@ JUMP_CHOL = np.linalg.cholesky(4e-4 * (0.5 * np.eye(A) + 0.5)).astype(np.float32
 JUMP_MU = np.array([-0.15, -0.10], np.float32)
 JUMP_SIG = np.array([0.05, 0.04], np.float32)
 JUMP_LAM = 0.05
-
-
-def test_merton_kernel_zero_rate_bit_equals_gbm_rebalance():
-    """lam=0 kills the jump term and the z stream addressing matches the
-    multi-dd kernel's, so the jump kernel must reduce BIT-EXACTLY to GBM
-    rebalance mode in interpret mode (the jump grid rides a disjoint fold
-    constant and is simply unused)."""
-    from mcport.ops.pallas_jump import pallas_merton_path_stats
-    from mcport.ops.pallas_multi_dd import gbm_multi_portfolio_dd
-
-    t0, d0 = pallas_merton_path_stats(3, JUMP_M, JUMP_CHOL, 0.0, JUMP_MU,
-                                      JUMP_SIG, W, 1024, 13, **KW)
-    tr, dr = gbm_multi_portfolio_dd(3, JUMP_M, JUMP_CHOL, W, 1024, 13,
-                                    rebalance=True, unroll=1, **KW)
-    np.testing.assert_array_equal(np.asarray(t0), np.asarray(tr))
-    np.testing.assert_array_equal(np.asarray(d0), np.asarray(dr))
-
-
-def test_merton_kernel_matches_lax_law():
-    from mcport.models.jump import merton_path_stats
-    from mcport.ops.pallas_jump import pallas_merton_path_stats
-
-    n, steps = 8_192, 13
-    tk, dk = pallas_merton_path_stats(3, JUMP_M, JUMP_CHOL, JUMP_LAM, JUMP_MU,
-                                      JUMP_SIG, W, n, steps, **KW)
-    tl, dl = merton_path_stats(jax.random.key(3), JUMP_M, JUMP_CHOL, JUMP_LAM,
-                               JUMP_MU, JUMP_SIG, W, n, steps)
-    tk, dk, tl, dl = (np.asarray(x, np.float64) for x in (tk, dk, tl, dl))
-    se = tl.std(1, ddof=1) / np.sqrt(n)
-    assert np.all(np.abs(tk.mean(1) - tl.mean(1)) < 6 * se)
-    assert np.all(np.abs(tk.std(1) / tl.std(1) - 1) < 0.1)
-    for q in (0.05, 0.5):
-        np.testing.assert_allclose(np.quantile(dk, q, axis=1),
-                                   np.quantile(dl, q, axis=1), atol=0.035)
-    # jumps make the drawdown tail strictly worse than the no-jump law
-    t0, d0 = pallas_merton_path_stats(3, JUMP_M, JUMP_CHOL, 0.0, JUMP_MU,
-                                      JUMP_SIG, W, n, steps, **KW)
-    assert np.quantile(dk, 0.05) < np.quantile(np.asarray(d0, np.float64), 0.05)
 
 
 def test_merton_lax_jump_frequency_and_size():
@@ -344,56 +153,6 @@ def test_merton_lax_jump_frequency_and_size():
     assert abs(rate - 0.1) < 4 * np.sqrt(0.1 * 0.9 / n)
     np.testing.assert_allclose(np.asarray(term[0])[jumped].mean(),
                                np.exp(-0.5) - 1, atol=0.01)
-
-
-def test_merton_kernel_hedged_identity_and_put():
-    from mcport.ops.pallas_jump import pallas_merton_path_stats
-
-    args = (3, JUMP_M, JUMP_CHOL, JUMP_LAM, JUMP_MU, JUMP_SIG, W, 512, 13)
-    tp, dp = pallas_merton_path_stats(*args, **KW)
-    th, dh = pallas_merton_path_stats(*args, **KW, hedge_args=IDENT_ARGS)
-    np.testing.assert_allclose(np.asarray(th), np.asarray(tp), atol=3e-6)
-    np.testing.assert_allclose(np.asarray(dh), np.asarray(dp), atol=3e-6)
-    s0 = np.array([100.0, 50.0], np.float32)
-    prot = _protective_put(s0)
-    tr, dr = pallas_merton_path_stats(*args, **KW,
-                                      hedge_args=(s0, *IDENTITY.arrays))
-    tq, dq = pallas_merton_path_stats(*args, **KW,
-                                      hedge_args=(s0, *prot.arrays))
-    assert (np.asarray(tq) >= np.asarray(tr) - 1e-6).all()
-    assert np.asarray(dq).mean() >= np.asarray(dr).mean()
-    # lax hedged identity too
-    from mcport.models.jump import merton_path_stats
-
-    tl, dl = merton_path_stats(jax.random.key(2), JUMP_M, JUMP_CHOL, JUMP_LAM,
-                               JUMP_MU, JUMP_SIG, W, 512, 13)
-    tlh, dlh = merton_path_stats(jax.random.key(2), JUMP_M, JUMP_CHOL,
-                                 JUMP_LAM, JUMP_MU, JUMP_SIG, W, 512, 13,
-                                 hedge_args=IDENT_ARGS)
-    np.testing.assert_allclose(np.asarray(tlh), np.asarray(tl), atol=3e-6)
-    np.testing.assert_allclose(np.asarray(dlh), np.asarray(dl), atol=3e-6)
-
-
-def test_merton_kernel_deterministic_chunking_and_odd_steps():
-    from mcport.ops.pallas_jump import pallas_merton_path_stats
-
-    for steps in (5, 6, 7, 8):
-        a1 = pallas_merton_path_stats(9, JUMP_M, JUMP_CHOL, JUMP_LAM, JUMP_MU,
-                                      JUMP_SIG, W, 256, steps, **KW)
-        a2 = pallas_merton_path_stats(9, JUMP_M, JUMP_CHOL, JUMP_LAM, JUMP_MU,
-                                      JUMP_SIG, W, 256, steps, **KW)
-        np.testing.assert_array_equal(np.asarray(a1[0]), np.asarray(a2[0]))
-        assert np.isfinite(np.asarray(a1[0])).all()
-    w_many = np.asarray(
-        jax.random.dirichlet(jax.random.key(2), jnp.ones(A), (300,)),
-        np.float32)
-    t, d = pallas_merton_path_stats(9, JUMP_M, JUMP_CHOL, JUMP_LAM, JUMP_MU,
-                                    JUMP_SIG, w_many, 128, 5, **KW)
-    assert t.shape == (300, 128) and d.shape == (300, 128)
-    w_dup = np.vstack([w_many[:260], w_many[:1]])
-    t2, _ = pallas_merton_path_stats(9, JUMP_M, JUMP_CHOL, JUMP_LAM, JUMP_MU,
-                                     JUMP_SIG, w_dup, 128, 5, **KW)
-    np.testing.assert_array_equal(np.asarray(t2[-1]), np.asarray(t2[0]))
 
 
 def test_merton_engine_api_and_family_frontier(fixtures_dir):
@@ -423,11 +182,11 @@ def test_merton_engine_api_and_family_frontier(fixtures_dir):
 
     fr = family_drawdown_frontier_search(
         _jax.random.key(0), "jump", mp, dd_budget=0.8, n_candidates=64,
-        n_paths=512, n_steps=13, use_pallas=False)
+        n_paths=512, n_steps=13)
     assert fr.opt_idx >= 0
     fr2 = family_drawdown_frontier_search(
         _jax.random.key(0), "jump", mp, dd_budget=0.8, n_candidates=64,
-        n_paths=512, n_steps=13, use_pallas=False, w_block=32)
+        n_paths=512, n_steps=13, w_block=32)
     np.testing.assert_array_equal(fr.ret, fr2.ret)
 
 
@@ -445,24 +204,6 @@ def _dcc_params():
         corr_chol=np.linalg.cholesky(corr), sigma2_0=sig0, eps2_0=sig0)
     return DCCGarchParams(base=base, a_dcc=0.06, b_dcc=0.9, q0=corr,
                           e0=np.zeros(A))
-
-
-def test_dcc_kernel_matches_lax_law():
-    from mcport.models.dcc import dcc_path_stats
-    from mcport.ops.pallas_dcc import pallas_dcc_path_stats
-
-    dp = _dcc_params()
-    n, steps = 8_192, 13
-    tk, dk = pallas_dcc_path_stats(3, dp, W, n, steps, interpret=True,
-                                   block=256)
-    tl, dl = dcc_path_stats(jax.random.key(3), dp, W, n, steps)
-    tk, dk, tl, dl = (np.asarray(x, np.float64) for x in (tk, dk, tl, dl))
-    se = tl.std(1, ddof=1) / np.sqrt(n)
-    assert np.all(np.abs(tk.mean(1) - tl.mean(1)) < 6 * se)
-    assert np.all(np.abs(tk.std(1) / tl.std(1) - 1) < 0.1)
-    for q in (0.05, 0.5):
-        np.testing.assert_allclose(np.quantile(dk, q, axis=1),
-                                   np.quantile(dl, q, axis=1), atol=0.02)
 
 
 def test_dcc_path_stats_static_corr_matches_ccc_law():
@@ -483,35 +224,6 @@ def test_dcc_path_stats_static_corr_matches_ccc_law():
     assert np.all(np.abs(td.std(1) / tc.std(1) - 1) < 0.1)
     np.testing.assert_allclose(np.median(dd_, axis=1), np.median(dc, axis=1),
                                atol=0.02)
-
-
-def test_dcc_kernel_hedged_identity_and_chunking():
-    from mcport.ops.pallas_dcc import pallas_dcc_path_stats
-
-    dp = _dcc_params()
-    kw2 = dict(interpret=True, block=256)
-    tp, dp2 = pallas_dcc_path_stats(5, dp, W, 512, 13, **kw2)
-    th, dh = pallas_dcc_path_stats(5, dp, W, 512, 13, **kw2,
-                                   hedge_args=IDENT_ARGS)
-    np.testing.assert_allclose(np.asarray(th), np.asarray(tp), atol=3e-6)
-    np.testing.assert_allclose(np.asarray(dh), np.asarray(dp2), atol=3e-6)
-    s0 = np.array([100.0, 50.0], np.float32)
-    prot = _protective_put(s0)
-    tr, dr = pallas_dcc_path_stats(5, dp, W, 512, 13, **kw2,
-                                   hedge_args=(s0, *IDENTITY.arrays))
-    tq, dq = pallas_dcc_path_stats(5, dp, W, 512, 13, **kw2,
-                                   hedge_args=(s0, *prot.arrays))
-    assert (np.asarray(tq) >= np.asarray(tr) - 1e-6).all()
-    assert np.asarray(dq).mean() >= np.asarray(dr).mean()
-    # chunk-boundary continuity
-    w_many = np.asarray(
-        jax.random.dirichlet(jax.random.key(3), jnp.ones(A), (300,)),
-        np.float32)
-    t, d = pallas_dcc_path_stats(7, dp, w_many, 128, 5, **kw2)
-    assert t.shape == (300, 128) and d.shape == (300, 128)
-    w_dup = np.vstack([w_many[:260], w_many[:1]])
-    t2, _ = pallas_dcc_path_stats(7, dp, w_dup, 128, 5, **kw2)
-    np.testing.assert_array_equal(np.asarray(t2[-1]), np.asarray(t2[0]))
 
 
 def test_dcc_engine_api_and_family_frontier(fixtures_dir):
@@ -542,9 +254,47 @@ def test_dcc_engine_api_and_family_frontier(fixtures_dir):
 
     fr = family_drawdown_frontier_search(
         _jax.random.key(0), "dcc", dp, dd_budget=0.5, n_candidates=48,
-        n_paths=512, n_steps=13, use_pallas=False)
+        n_paths=512, n_steps=13)
     assert fr.opt_idx >= 0
     fr2 = family_drawdown_frontier_search(
         _jax.random.key(0), "dcc", dp, dd_budget=0.5, n_candidates=48,
-        n_paths=512, n_steps=13, use_pallas=False, w_block=16)
+        n_paths=512, n_steps=13, w_block=16)
     np.testing.assert_array_equal(fr.ret, fr2.ret)
+
+
+# ---- hedged settlement laws, every lax family ------------------------------
+
+
+def _family_stats(model, key, n, steps, hedge_args=None, history=None):
+    if model == "garch":
+        return garch_path_stats(key, PARAMS, W, n, steps, hedge_args=hedge_args)
+    if model == "bootstrap":
+        return bootstrap_path_stats(key, history, W, n, steps,
+                                    hedge_args=hedge_args)
+    if model == "jump":
+        from mcport.models.jump import merton_path_stats
+
+        return merton_path_stats(key, JUMP_M, JUMP_CHOL, JUMP_LAM, JUMP_MU,
+                                 JUMP_SIG, W, n, steps, hedge_args=hedge_args)
+    from mcport.models.dcc import dcc_path_stats
+
+    return dcc_path_stats(key, _dcc_params(), W, n, steps,
+                          hedge_args=hedge_args)
+
+
+@pytest.mark.parametrize("model", ["garch", "bootstrap", "jump", "dcc"])
+def test_lax_hedged_identity_and_protective_put(model, history):
+    """All-BUY_ASSET legs reproduce the plain recursion on the same stream;
+    zero-premium protective puts dominate per-period returns, so terminal
+    wealth dominates path by path and drawdowns improve in aggregate."""
+    key = jax.random.key(5)
+    tp, dp = _family_stats(model, key, 512, 13, history=history)
+    th, dh = _family_stats(model, key, 512, 13, IDENT_ARGS, history)
+    np.testing.assert_allclose(np.asarray(th), np.asarray(tp), atol=3e-6)
+    np.testing.assert_allclose(np.asarray(dh), np.asarray(dp), atol=3e-6)
+    s0 = np.array([100.0, 50.0], np.float32)
+    tr, dr = _family_stats(model, key, 512, 13, (s0, *IDENTITY.arrays), history)
+    tq, dq = _family_stats(model, key, 512, 13,
+                           (s0, *_protective_put(s0).arrays), history)
+    assert (np.asarray(tq) >= np.asarray(tr) - 1e-6).all()
+    assert np.asarray(dq).mean() >= np.asarray(dr).mean()

@@ -3,7 +3,7 @@
 import numpy as np
 import pandas as pd
 
-from mcport.data import download_prices, get_price_dataframe_from_yf
+from mcport.data.yf_loader import download_prices, get_price_dataframe_from_yf
 
 
 def _dates(n=5):
